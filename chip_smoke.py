@@ -3,23 +3,31 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``gnss_sdr_tpu_torch/csrc/``, holds
-each against its plain PyTorch version on the card, drives the eager
-tracking engine through the correlator (K3) and the receiver through the
-fused tracker (K1), and checks the receiver's fixes against the position
-gates of ``tests/test_position.py``. Every phase prints one JSON line; any
-failure exits nonzero. The last two lines are the kernel table and
-``{"ok": true, "device": {...}}``. Needs a CUDA device and the repository's
-``gnss_sdr_tpu_torch`` package; imports no JAX.
+each against its plain PyTorch version on the card, drives the three
+tracking engines (eager through the correlator K3, fused through K1 and
+through K2) over the same blocks, runs the receiver through K1 and the
+.conf/CLI entry point (``gnss_sdr_tpu_torch.main``) from an ``ibyte``
+capture through K1 and, under ``GNSS_SDR_TPU_FUSED=perchannel``, through
+K2, and checks every run's fixes against the position gates of
+``tests/test_position.py``. Every phase prints one JSON line; any failure
+exits nonzero. The last two lines are the kernel table and
+``{"ok": true, "device": {...}}``. Needs a CUDA device and the
+repository's ``gnss_sdr_tpu_torch`` package; imports no JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -27,11 +35,17 @@ import torch
 FS = 2.6e6
 CARD_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 CARD_F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
+ROOT = Path(__file__).resolve().parent
 # operations per sample, counted from the kernels' inner loops (csrc/):
 # phase fma 2, sincosf ~20, wipeoff 6, code phase fma 2, and per tap the
-# replica (K1 ~12, K3's ramp form ~20) plus 4 for the two products and sums
-K1_OPS_PER_SAMPLE = 2 + 20 + 6 + 2 + 3 * (12 + 4)
+# replica (K1 and K2 ~12, K3's ramp form ~20) plus 4 for the two products
+# and sums
+FUSED_OPS_PER_SAMPLE = 2 + 20 + 6 + 2 + 3 * (12 + 4)
 K3_OPS_PER_SAMPLE = 2 + 20 + 6 + 2 + 3 * (20 + 4)
+# lanes compared between fused trackers; period length and position exact
+CHECK_LANES = [0, 1, 2, 3, 10, 11, 12, 13, 14, 17, 20, 21, 22, 23,
+               32, 33, 34, 35, 36, 37]
+EXACT_LANES = [10, 17]
 
 
 def emit(phase: str, **fields) -> None:
@@ -74,6 +88,72 @@ def synthetic_signal(tbl: np.ndarray, n: int, dops, delays, seed: int):
     return (sig + noise[:, 0] + 1j * noise[:, 1]).astype(np.complex64)
 
 
+def rows_rel_err(name: str, ref: np.ndarray, got: np.ndarray, K: int) -> dict:
+    """Worst relative difference over the checked lanes, within 5e-5 over
+    the first 2 periods and 2e-3 over all K; period lengths and positions
+    equal."""
+    rels = {}
+    for upto, tol in ((2, 5e-5), (K, 2e-3)):
+        worst = 0.0
+        for ln in CHECK_LANES:
+            a, b = ref[:, :upto, ln], got[:, :upto, ln]
+            worst = max(worst, float(np.abs(a - b).max())
+                        / max(1e-6, float(np.abs(a).max())))
+        if not worst < tol:
+            raise AssertionError(
+                f"{name} (K={K}) disagrees over {upto} periods: {worst}")
+        rels[f"rel_err_first_{upto}"] = worst
+    for ln in EXACT_LANES:
+        if not np.array_equal(ref[:, :, ln], got[:, :, ln]):
+            raise AssertionError(f"{name} (K={K}) lane {ln} not exact")
+    return rels
+
+
+def position_gates(status, scen) -> dict:
+    """The receiver's fixes against tests/test_position.py's gates; raises
+    if one fails."""
+    from gnss_sdr_tpu_torch.pvt.coords import ecef_to_enu
+
+    fixes = status.fixes
+    lat, lon = np.deg2rad(scen.cfg.rx_lat_deg), np.deg2rad(scen.cfg.rx_lon_deg)
+    enu = np.array([ecef_to_enu(f.pos_ecef - scen.rx_ecef, lat, lon)
+                    for f in fixes[3:]]) if len(fixes) > 3 else np.zeros((0, 3))
+    err_2d = np.hypot(enu[:, 0], enu[:, 1])
+    err_3d = np.linalg.norm(enu, axis=1)
+    speed = np.array([np.linalg.norm(f.vel_ecef) for f in fixes[3:]])
+    e = dict(
+        acquired=len(status.acquired), subframes=status.subframes,
+        fixes=len(fixes),
+        mean_2d_m=float(err_2d.mean()) if len(err_2d) else math.inf,
+        mean_3d_m=float(err_3d.mean()) if len(err_3d) else math.inf,
+        rms_2d_m=float(np.sqrt(np.mean(err_2d ** 2))) if len(err_2d)
+        else math.inf,
+        mean_speed_mps=float(speed.mean()) if len(speed) else math.inf,
+        ttff_s=status.ttff_s)
+    gates = (e["acquired"] >= 4 and e["subframes"] >= 8
+             and e["fixes"] >= 10 and e["mean_2d_m"] < 2.0
+             and e["mean_3d_m"] < 5.0 and e["rms_2d_m"] < 3.0
+             and e["mean_speed_mps"] < 0.5 and e["ttff_s"] is not None
+             and 10.0 < e["ttff_s"] < 32.0)
+    if not gates:
+        raise AssertionError(f"position gates failed: {e}")
+    return e
+
+
+@contextlib.contextmanager
+def fused_engine(value: str | None):
+    """GNSS_SDR_TPU_FUSED set to ``value`` (unset for None) inside."""
+    old = os.environ.pop("GNSS_SDR_TPU_FUSED", None)
+    if value is not None:
+        os.environ["GNSS_SDR_TPU_FUSED"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("GNSS_SDR_TPU_FUSED", None)
+        if old is not None:
+            os.environ["GNSS_SDR_TPU_FUSED"] = old
+
+
 def assert_match(a, b, prompt_tol=5e-3, dop_tol=0.1) -> dict:
     """tests/test_fused_receiver.py's _assert_match on two BlockResults;
     returns the measured differences."""
@@ -99,6 +179,89 @@ def assert_match(a, b, prompt_tol=5e-3, dop_tol=0.1) -> dict:
     return diffs
 
 
+def cli_phase(capture: np.ndarray, scen, tmp: Path) -> dict:
+    """Phase 7: the .conf/CLI entry point on an ibyte copy of the capture,
+    through K1 and through K2, and the CLI itself as a subprocess."""
+    from gnss_sdr_tpu_torch import main as cli
+    from gnss_sdr_tpu_torch.config.configuration import FileConfiguration
+    from gnss_sdr_tpu_torch.io import encode_samples
+    from gnss_sdr_tpu_torch.ops import track_kernel as k2
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.tracking.tracker import Tracker
+
+    # tests/test_main_cli.py's encoding: int8 I/Q at 16 counts per unit
+    t0 = time.perf_counter()
+    cap = tmp / "capture_l1.dat"
+    cap.write_bytes(encode_samples(np.round(capture * 16), "ibyte"))
+    # conf/gps_l1_file.conf's keys, this capture, outputs into tmp
+    text = (ROOT / "conf" / "gps_l1_file.conf").read_text().replace(
+        "SignalSource.filename=./capture_l1.dat",
+        f"SignalSource.filename={cap}")
+    if str(cap) not in text:
+        raise AssertionError("conf/gps_l1_file.conf has no filename key")
+    text += "".join(f"PVT.{k}={tmp / v}\n" for k, v in (
+        ("kml_dump_filename", "pvt.kml"), ("rinex_obs_filename", "obs.rnx"),
+        ("rinex_nav_filename", "nav.rnx")))
+    conf = tmp / "gps_l1_file.conf"
+    conf.write_text(text)
+    emit("cli_capture", seconds=time.perf_counter() - t0,
+         bytes=cap.stat().st_size, conf=str(conf.name))
+
+    blocks = [0]
+    process = Tracker.process_device
+
+    def counted(self, *a):
+        r = process(self, *a)
+        blocks[0] += 1
+        return r
+
+    runs = {}
+    Tracker.process_device = counted
+    try:
+        for engine, env in (("track_blocked", None),
+                            ("track_full", "perchannel")):
+            blocks[0] = 0
+            k1.track_blocked.launches = 0
+            k2.track_full.launches = 0
+            out = io.StringIO()
+            with fused_engine(env), contextlib.redirect_stdout(out):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                status = cli.run_from_config(FileConfiguration(conf))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            n1, n2 = k1.track_blocked.launches, k2.track_full.launches
+            want = {"track_blocked": (blocks[0], 0),
+                    "track_full": (0, blocks[0])}[engine]
+            if not (blocks[0] > 0 and (n1, n2) == want):
+                raise AssertionError(
+                    f"CLI run ({engine}): {n1} K1 and {n2} K2 launches for "
+                    f"{blocks[0]} blocks")
+            e = position_gates(status, scen)
+            runs[engine] = dict(
+                e, GNSS_SDR_TPU_FUSED=env, blocks=blocks[0],
+                k1_launches=n1, k2_launches=n2,
+                status_tables=out.getvalue().count("channel status"),
+                wall_s=wall, realtime_factor=scen.cfg.duration_s / wall)
+            emit("cli_run", engine=engine, **runs[engine])
+    finally:
+        Tracker.process_device = process
+
+    # the CLI as a user runs it
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gnss_sdr_tpu_torch.main", "-c", str(conf),
+         "--max_seconds", "4"], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    tail = proc.stdout.strip().splitlines()[-2:]
+    emit("cli_subprocess", rc=proc.returncode,
+         seconds=time.perf_counter() - t, stdout_tail=tail)
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -106,10 +269,10 @@ def main() -> int:
     from gnss_sdr_tpu_torch.codes.gps_l1_ca import gps_l1_ca_code_table
     from gnss_sdr_tpu_torch.ops import _build
     from gnss_sdr_tpu_torch.ops import correlator as k3
+    from gnss_sdr_tpu_torch.ops import track_kernel as k2
     from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
     from gnss_sdr_tpu_torch.ops.correlator import pack_code_table
     from gnss_sdr_tpu_torch.ops.slots import LANES
-    from gnss_sdr_tpu_torch.pvt.coords import ecef_to_enu
     from gnss_sdr_tpu_torch.receiver.plans import gps_l1ca_plan
     from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
     from gnss_sdr_tpu_torch.simulate.scenario import GpsScenario, ScenarioConfig
@@ -179,7 +342,8 @@ def main() -> int:
     emit("k3_vs_plain", C=C, N=npad, n_valid=n_valid, L=L, T=3,
          rel_err=rel, tol=2e-3, **kernels["correlator"])
 
-    # ---- 4. K1 against its plain version, K = 20 and K = 1000 ------------
+    # ---- 4. K1 and K2 against their plain version, K = 20 and 1000 -------
+    # (K2's plain version is K1's: the two kernels compute the same rows)
     dops = [1200.0, -2500.0, 3400.0, -400.0, 150.0, -3900.0, 2600.0, -1700.0]
     delays = [37.0 + 311.0 * c for c in range(C)]
     sig = synthetic_signal(tbl, int(FS * 1.12), dops, delays, seed=1)
@@ -199,62 +363,69 @@ def main() -> int:
         scal = _pack_scalars(conf, st)
         spec = build_fused_engine(conf)
         args = (window, codes, scal, st.pos, spec)
-        o_k = k1.track_blocked(*args).cpu().numpy()
+        o_1 = k1.track_blocked(*args).cpu().numpy()
+        o_2 = k2.track_full(*args).cpu().numpy()
         o_p = k1.track_blocked_plain(*args).cpu().numpy()
-        lanes = [0, 1, 2, 3, 10, 11, 12, 13, 14, 17, 20, 21, 22, 23,
-                 32, 33, 34, 35, 36, 37]
-        rels = {}
-        for upto, tol in ((2, 5e-5), (K, 2e-3)):
-            worst = 0.0
-            for ln in lanes:
-                a, b = o_p[:, :upto, ln], o_k[:, :upto, ln]
-                worst = max(worst, float(np.abs(a - b).max())
-                            / max(1e-6, float(np.abs(a).max())))
-            if not worst < tol:
-                raise AssertionError(
-                    f"K1 (K={K}) disagrees over {upto} periods: {worst}")
-            rels[f"rel_err_first_{upto}"] = worst
-        for ln in (10, 17):
-            if not np.array_equal(o_p[:, :, ln], o_k[:, :, ln]):
-                raise AssertionError(f"K1 (K={K}) lane {ln} not exact")
-        out = torch.empty((C, K, LANES), dtype=torch.float32, device=dev)
-        ms = cuda_ms(lambda: k1.launch(*args, out), 50 if K == 20 else 5)
+        torch.cuda.synchronize()
         plain_ms = cuda_ms(lambda: k1.track_blocked_plain(*args), 1)
-        n_total = float(o_k[:, :, 10].sum())
-        k1_bytes = (n_total * 8 + codes.numel() * 4 + scal.numel() * 4
-                    + C * 4 + C * K * LANES * 4)
-        b_ms, b_by = bound(k1_bytes, n_total * K1_OPS_PER_SAMPLE)
-        res = dict(max_abs_err=float(np.abs(o_p[:, :, lanes]
-                                            - o_k[:, :, lanes]).max()),
-                   ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                   msamples_per_s=n_total / (ms * 1e-3) / 1e6)
-        if K == 20:
-            kernels["track_blocked"] = dict(res)
-        emit("k1_vs_plain", C=C, K=K, n_max=spec.n_max, L=L, T=3,
-             exact_lanes=[10, 17], **rels, **res)
+        n_total = float(o_p[:, :, 10].sum())
+        fused_bytes = (n_total * 8 + codes.numel() * 4 + scal.numel() * 4
+                       + C * 4 + C * K * LANES * 4)
+        b_ms, b_by = bound(fused_bytes, n_total * FUSED_OPS_PER_SAMPLE)
+        out = torch.empty((C, K, LANES), dtype=torch.float32, device=dev)
+        reps = 50 if K == 20 else 5
+        for kname, o_k, launch in (("track_blocked", o_1, k1.launch),
+                                   ("track_full", o_2, k2.launch)):
+            rels = rows_rel_err(kname, o_p, o_k, K)
+            ms = cuda_ms(lambda: launch(*args, out), reps)
+            res = dict(max_abs_err=float(np.abs(o_p[:, :, CHECK_LANES]
+                                                - o_k[:, :, CHECK_LANES]).max()),
+                       ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       msamples_per_s=n_total / (ms * 1e-3) / 1e6)
+            if K == 20:
+                kernels[kname] = dict(res)
+            extra = {}
+            if kname == "track_full":
+                extra = {f"vs_k1_{k}": v for k, v in rows_rel_err(
+                    "K2 against K1", o_1, o_2, K).items()}
+            emit("k1_vs_plain" if kname == "track_blocked" else "k2_vs_plain",
+                 C=C, K=K, n_max=spec.n_max, L=L, T=3,
+                 exact_lanes=EXACT_LANES, **rels, **extra, **res)
 
-    # ---- 5. eager engine through K3, against the fused engine ------------
+    # ---- 5. the three engines over the same blocks -----------------------
+    # eager (K3 per period), fused through K1, fused through K2
     plan = gps_l1ca_plan(FS, num_channels=C)
     results = {}
-    k3.correlator.launches = 0
-    k1.track_blocked.launches = 0
-    for fused in (False, True):
+    counts = {}
+    for engine, fused, env in (("eager", False, None),
+                               ("track_blocked", True, "blocked"),
+                               ("track_full", True, "perchannel")):
         conf = dataclasses.replace(plan.trk_conf, fused_tracker=fused)
-        trk = Tracker(conf, tbl, device=dev)
+        with fused_engine(env):
+            trk = Tracker(conf, tbl, device=dev)
         for ch in range(C):
             trk.start_channel(ch, prn=ch + 1, code_row=ch,
                               acq_delay_samples=delays[ch],
                               acq_doppler_hz=dops[ch] + 30.0,
                               acq_samplestamp=0, current_abs_sample=0)
-        results[fused] = [trk.process(sig, 0) for _ in range(3)]
-    torch.cuda.synchronize()
-    k3_launches = k3.correlator.launches
-    if k3_launches != 3 * plan.trk_conf.steps_per_block:
-        raise AssertionError(f"eager engine made {k3_launches} K3 launches")
-    diffs = [assert_match(a, b) for a, b in zip(results[False], results[True])]
-    kernels["correlator"]["launches"] = k3_launches
-    emit("eager_vs_fused", blocks=3, k3_launches=k3_launches,
-         k1_launches=k1.track_blocked.launches, diffs=diffs)
+        k3.correlator.launches = 0
+        k1.track_blocked.launches = 0
+        k2.track_full.launches = 0
+        results[engine] = [trk.process(sig, 0) for _ in range(3)]
+        torch.cuda.synchronize()
+        counts[engine] = (k3.correlator.launches, k1.track_blocked.launches,
+                          k2.track_full.launches)
+    steps = plan.trk_conf.steps_per_block
+    want = {"eager": (3 * steps, 0, 0), "track_blocked": (0, 3, 0),
+            "track_full": (0, 0, 3)}
+    if counts != want:
+        raise AssertionError(f"engine launches {counts}, want {want}")
+    diffs = {f"{a}_vs_{b}": [assert_match(x, y) for x, y in
+                             zip(results[a], results[b])]
+             for a, b in (("eager", "track_blocked"), ("eager", "track_full"),
+                          ("track_blocked", "track_full"))}
+    kernels["correlator"]["launches"] = counts["eager"][0]
+    emit("three_engines", blocks=3, launches=counts, diffs=diffs)
 
     # ---- 6. end to end: gps8 on the 32 s scenario ------------------------
     t0 = time.perf_counter()
@@ -296,34 +467,12 @@ def main() -> int:
     k1_launches, k3_main = k1.track_blocked.launches, k3.correlator.launches
     if not (blocks > 0 and k1_launches == blocks):
         raise AssertionError(f"{k1_launches} K1 launches for {blocks} blocks")
-    fixes = rx.status.fixes
-    lat, lon = np.deg2rad(scen.cfg.rx_lat_deg), np.deg2rad(scen.cfg.rx_lon_deg)
-    enu = np.array([ecef_to_enu(f.pos_ecef - scen.rx_ecef, lat, lon)
-                    for f in fixes[3:]]) if len(fixes) > 3 else np.zeros((0, 3))
-    err_2d = np.hypot(enu[:, 0], enu[:, 1])
-    err_3d = np.linalg.norm(enu, axis=1)
-    speed = np.array([np.linalg.norm(f.vel_ecef) for f in fixes[3:]])
-    e2e = dict(
-        acquired=len(rx.status.acquired), subframes=rx.status.subframes,
-        fixes=len(fixes),
-        mean_2d_m=float(err_2d.mean()) if len(err_2d) else math.inf,
-        mean_3d_m=float(err_3d.mean()) if len(err_3d) else math.inf,
-        rms_2d_m=float(np.sqrt(np.mean(err_2d ** 2))) if len(err_2d)
-        else math.inf,
-        mean_speed_mps=float(speed.mean()) if len(speed) else math.inf,
-        ttff_s=rx.status.ttff_s,
-        locked=len(rx.tracker.active_channels()),
-        blocks=blocks, k1_launches=k1_launches, k3_launches=k3_main,
-        k1_launches_per_signal_s=k1_launches / 32.0,
-        wall_s=wall, realtime_factor=32.0 / wall)
+    e2e = dict(position_gates(rx.status, scen),
+               locked=len(rx.tracker.active_channels()),
+               blocks=blocks, k1_launches=k1_launches, k3_launches=k3_main,
+               k1_launches_per_signal_s=k1_launches / 32.0,
+               wall_s=wall, realtime_factor=32.0 / wall)
     emit("e2e_gps8_32s", **e2e)
-    gates = (e2e["acquired"] >= 4 and e2e["subframes"] >= 8
-             and e2e["fixes"] >= 10 and e2e["mean_2d_m"] < 2.0
-             and e2e["mean_3d_m"] < 5.0 and e2e["rms_2d_m"] < 3.0
-             and e2e["mean_speed_mps"] < 0.5 and e2e["ttff_s"] is not None
-             and 10.0 < e2e["ttff_s"] < 32.0)
-    if not gates:
-        raise AssertionError("position gates failed")
     kernels["track_blocked"]["launches"] = k1_launches
 
     # bench.py gps8 settings: 1000 periods per block, int8 stream
@@ -335,11 +484,19 @@ def main() -> int:
          locked=len(rx6.tracker.active_channels()), wall_s=wall6,
          realtime_factor=6.0 / wall6)
 
-    # ---- 7. kernels ------------------------------------------------------
+    # ---- 7. the .conf/CLI path, through K1 and through K2 ----------------
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = cli_phase(capture, scen, Path(tmp))
+    kernels["track_full"]["launches"] = runs["track_full"]["k2_launches"]
+
+    # ---- 8. kernels ------------------------------------------------------
     meta = {
         "track_blocked": dict(
             route="cuda", source="gnss_sdr_tpu_torch/csrc/track_blocked.cu",
             replaces="gnss_sdr_tpu/ops/track_kernel_blocked.py:148"),
+        "track_full": dict(
+            route="cuda", source="gnss_sdr_tpu_torch/csrc/track_full.cu",
+            replaces="gnss_sdr_tpu/ops/track_kernel.py:476"),
         "correlator": dict(
             route="cuda", source="gnss_sdr_tpu_torch/csrc/correlator.cu",
             replaces="gnss_sdr_tpu/ops/correlator.py:46"),
@@ -349,7 +506,7 @@ def main() -> int:
               "ms": kernels[n]["ms"], "plain_ms": kernels[n]["plain_ms"],
               "bound_ms": kernels[n]["bound_ms"],
               "bound_by": kernels[n]["bound_by"], "library_ms": None}
-             for n in ("track_blocked", "correlator")]
+             for n in ("track_blocked", "track_full", "correlator")]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

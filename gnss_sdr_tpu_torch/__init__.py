@@ -1,13 +1,17 @@
 """gnss_sdr_tpu_torch — the GPS L1 C/A receiver of ``gnss_sdr_tpu`` on
-PyTorch and CUDA.
+PyTorch and CUDA, from Python or from a ``.conf`` file
+(``python -m gnss_sdr_tpu_torch.main -c <file.conf>``).
 
 The package mirrors ``gnss_sdr_tpu``'s module paths and public names. The
 JAX package stays the reference; this one imports neither it nor JAX.
-Pure-NumPy modules (codes, constants, telemetry, observables, PVT, the
-scenario simulator) are copies of the JAX package's files. Tracking runs
-through two hand-written CUDA kernels under ``csrc/``: the K-period fused
-tracker (``ops/track_kernel_blocked.py``) and the one-period correlator
-(``ops/correlator.py``). Each has a plain PyTorch version beside it, which
+Pure-NumPy modules (codes, constants, config, I/O sources and formats,
+output writers, telemetry, observables, PVT, the scenario simulator) are
+copies of the JAX package's files. Tracking runs through hand-written CUDA
+kernels under ``csrc/``: the K-period fused tracker in two mappings, one
+CTA per channel (K1, ``ops/track_kernel_blocked.py``) and one warp per
+channel (K2, ``ops/track_kernel.py``, under
+``GNSS_SDR_TPU_FUSED=perchannel``), and the one-period correlator (K3,
+``ops/correlator.py``). Each has a plain PyTorch version beside it, which
 the wrappers use only for tensors that lie on the CPU.
 
 Device policy: entry points take a ``device`` and default to ``"cuda"``.

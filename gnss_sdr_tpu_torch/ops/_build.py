@@ -25,9 +25,10 @@ BUILD_ROOT = _PKG / "_build"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
-# per-source flags: the fused tracker's period-length rule must round like
+# per-source flags: the fused trackers' period-length rule must round like
 # the plain version, so nvcc may not contract a*b+c into an FMA there
-FILE_FLAGS = {"track_blocked.cu": ["-fmad=false"]}
+FILE_FLAGS = {"track_blocked.cu": ["-fmad=false"],
+              "track_full.cu": ["-fmad=false"]}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -105,18 +106,20 @@ def build() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gnss_track_blocked.argtypes = [
-        p, i,            # window (float2 [L]), L
-        p, i,            # codes (f32 [C, code_len]), code_len
-        p, i,            # scalars (f32 [C, ns]), ns
-        p,               # pos (int32 [C])
-        p,               # out (f32 [C, K, 128])
-        i, i, i,         # C, K, n_max
-        p, i,            # params (host f32 [16]), num_taps
-        i, i, i,         # pll_order, dll_order, interp_code
-        p,               # stream
-    ]
-    lib.gnss_track_blocked.restype = i
+    # K1 and K2 take the same arguments
+    for fn in (lib.gnss_track_blocked, lib.gnss_track_full):
+        fn.argtypes = [
+            p, i,        # window (float2 [L]), L
+            p, i,        # codes (f32 [C, code_len]), code_len
+            p, i,        # scalars (f32 [C, ns]), ns
+            p,           # pos (int32 [C])
+            p,           # out (f32 [C, K, 128])
+            i, i, i,     # C, K, n_max
+            p, i,        # params (host f32 [16]), num_taps
+            i, i, i,     # pll_order, dll_order, interp_code
+            p,           # stream
+        ]
+        fn.restype = i
     lib.gnss_correlator.argtypes = [
         p, i,            # x (float2 [C, N]), N
         p, p, i, i,      # codes, dcodes (f32 [C, Q*128]), Q*128, code_len

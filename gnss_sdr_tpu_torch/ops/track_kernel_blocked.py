@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from typing import ClassVar
 
 import numpy as np
 import torch
@@ -93,6 +94,7 @@ class BlockedSpec:
     """Static configuration of one fused tracker (what the TPU package's
     ``make_fused_tracker_blocked`` closes over)."""
 
+    kernel: ClassVar[str] = "track_blocked"
     n_periods: int
     n_max: int
     code_len: int
@@ -152,7 +154,10 @@ def make_blocked_spec(n_periods: int, n_max: int, code_len: int,
                        bool(interp_code))
 
 
-def _check(window, codes, scalars, pos, spec: BlockedSpec) -> None:
+def check_inputs(window, codes, scalars, pos, spec: BlockedSpec) -> None:
+    """Raise unless the inputs are what K1 and K2 take (dtypes, shapes,
+    one device, contiguous) and every enabled channel's K periods lie
+    inside the window."""
     dev = window.device
     if window.dtype != torch.complex64 or window.dim() != 1:
         raise ValueError("window must be complex64 [W]")
@@ -400,7 +405,7 @@ def track_blocked_plain(window, codes, scalars, pos,
 def track_blocked(window, codes, scalars, pos,
                   spec: BlockedSpec) -> torch.Tensor:
     """K1 on CUDA tensors, the plain version on CPU tensors."""
-    _check(window, codes, scalars, pos, spec)
+    check_inputs(window, codes, scalars, pos, spec)
     if window.device.type == "cpu":
         return track_blocked_plain(window, codes, scalars, pos, spec)
     if window.device.type != "cuda":
@@ -415,6 +420,15 @@ def launch(window, codes, scalars, pos, spec: BlockedSpec,
            out: torch.Tensor) -> None:
     """Launch K1 on checked CUDA inputs into ``out`` [C, K, 128], on the
     current stream, without synchronising."""
+    launch_entry("gnss_track_blocked", window, codes, scalars, pos, spec, out)
+    track_blocked.launches += 1
+
+
+def launch_entry(entry: str, window, codes, scalars, pos,
+                 spec: BlockedSpec, out: torch.Tensor) -> None:
+    """Call the C entry point ``entry`` of the kernel library (K1's
+    ``gnss_track_blocked`` or K2's ``gnss_track_full``, which take the same
+    arguments); raises if the launch fails."""
     c = scalars.shape[0]
     k = spec.constants()
     params = [k["inv_fs"], k["nominal_step"], k["aid_ratio"], k["w0f"],
@@ -422,17 +436,15 @@ def launch(window, codes, scalars, pos, spec: BlockedSpec,
               *spec.tap_offsets]
     params += [0.0] * (16 - len(params))
     hp = (ctypes.c_float * 16)(*[float(v) for v in params])
-    lib = _build.library()
+    fn = getattr(_build.library(), entry)
     with torch.cuda.device(window.device):
         stream = torch.cuda.current_stream(window.device).cuda_stream
-        rc = lib.gnss_track_blocked(
-            window.data_ptr(), window.shape[0], codes.data_ptr(),
-            spec.code_len, scalars.data_ptr(), spec.num_scalars,
-            pos.data_ptr(), out.data_ptr(), c, spec.n_periods, spec.n_max,
-            hp, spec.num_taps, spec.pll_order, spec.dll_order,
-            int(spec.interp_code), stream)
-    _build.check(rc, "track_blocked")
-    track_blocked.launches += 1
+        rc = fn(window.data_ptr(), window.shape[0], codes.data_ptr(),
+                spec.code_len, scalars.data_ptr(), spec.num_scalars,
+                pos.data_ptr(), out.data_ptr(), c, spec.n_periods,
+                spec.n_max, hp, spec.num_taps, spec.pll_order,
+                spec.dll_order, int(spec.interp_code), stream)
+    _build.check(rc, entry)
 
 
 track_blocked.launches = 0

@@ -565,3 +565,13 @@ class Receiver:
 
     def close(self) -> None:
         """End of run: nothing to flush in this slice (no dumps)."""
+
+    # ------------------------------------------------- compat helper for CLI
+    def _idle_channel(self) -> int | None:
+        """The first idle (or lost) channel of the first group that has
+        one, or None (``main.run_from_config`` re-acquires only then)."""
+        for g in self.groups:
+            ch = g.idle_channel()
+            if ch is not None:
+                return ch
+        return None

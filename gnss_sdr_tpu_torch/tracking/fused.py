@@ -1,11 +1,14 @@
 """Fused tracking engine: the receiver's hot path on the card.
 
-Counterpart of ``gnss_sdr_tpu/tracking/fused.py``. It wraps kernel K1
-(``ops/track_kernel_blocked.track_blocked``: the whole K-period DLL/PLL
-loop in one launch) behind the same contract as the eager engine
-(``tracking/dll_pll.track_block``: state in, per-period outputs out), so
-``tracking/tracker.py`` swaps engines without touching the host FSM,
-observables or telemetry.
+Counterpart of ``gnss_sdr_tpu/tracking/fused.py``. It wraps a fused
+kernel (the whole K-period DLL/PLL loop in one launch) behind the same
+contract as the eager engine (``tracking/dll_pll.track_block``: state in,
+per-period outputs out), so ``tracking/tracker.py`` swaps engines without
+touching the host FSM, observables or telemetry. The kernel is K1
+(``ops/track_kernel_blocked.track_blocked``) unless
+``GNSS_SDR_TPU_FUSED=perchannel``, which selects K2
+(``ops/track_kernel.track_full``); both take the same inputs and return
+the same rows.
 
 Beyond the launch it
 
@@ -22,11 +25,13 @@ The code phase rides in float32 inside the kernel (about 6e-5 chips of
 resolution at 1023 chips, a few millimetres of pseudorange). Positions are
 int32 throughout and each channel's samples are read directly, so the
 TPU engine's limits on the window length and on the spread of channel
-positions do not apply; ``track_blocked`` raises if a channel would read
-past the end of the window.
+positions do not apply; the kernels' wrappers raise if a channel would
+read past the end of the window.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -52,6 +57,7 @@ from gnss_sdr_tpu_torch.ops.slots import (
     LANE_REM,
     LANE_SEC_IDX,
 )
+from gnss_sdr_tpu_torch.ops.track_kernel import make_full_spec, track_full
 from gnss_sdr_tpu_torch.ops.track_kernel_blocked import (
     BlockedSpec,
     make_blocked_spec,
@@ -72,10 +78,15 @@ def fused_eligible(conf: DllPllConf) -> bool:
 
 
 def build_fused_engine(conf: DllPllConf) -> BlockedSpec:
-    """The kernel's static configuration for this plan. The kernel reads
-    the plain [C, L] +-1 chip table, so no packed table is built."""
+    """The kernel's static configuration for this plan; its ``kernel``
+    names the engine: K1 by default, K2 when ``GNSS_SDR_TPU_FUSED`` is
+    ``perchannel`` (read here, as the JAX package reads it). The kernels
+    read the plain [C, L] +-1 chip table, so no packed table is built."""
     check_supported(conf)
-    return make_blocked_spec(
+    make = (make_full_spec
+            if os.environ.get("GNSS_SDR_TPU_FUSED", "blocked") == "perchannel"
+            else make_blocked_spec)
+    return make(
         conf.steps_per_block, conf.max_step_samples,
         conf.code_length_chips, tap_offsets_chips(conf),
         fs=conf.fs, code_rate_cps=conf.code_rate_cps,
@@ -141,11 +152,12 @@ def fused_track_block(
     codes: torch.Tensor,        # [C, L] float32 chip table
 ) -> tuple[TrackingState, dict]:
     """One fused block: the same contract as ``dll_pll.track_block``, with
-    the K-period loop inside a single K1 launch."""
+    the K-period loop inside a single launch of the spec's kernel."""
     t = conf.num_taps
     p_idx = t // 2
-    rows = track_blocked(window, codes, _pack_scalars(conf, state),
-                         state.pos, spec)                     # [C, K, 128]
+    run = track_full if spec.kernel == "track_full" else track_blocked
+    rows = run(window, codes, _pack_scalars(conf, state), state.pos,
+               spec)                                          # [C, K, 128]
 
     def col(lane):
         return rows[:, :, lane].T                             # [S, C]

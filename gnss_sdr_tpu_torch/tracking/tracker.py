@@ -12,8 +12,9 @@ code periods per call; between calls the host
 - switches channels to narrow-bandwidth extended integration after sync,
   or flags loss of lock for the receiver.
 
-Engines: the fused engine (``tracking/fused.py``, kernel K1) and the eager
-engine (``tracking/dll_pll.py``, kernel K3 per period). With
+Engines: the fused engine (``tracking/fused.py``, kernel K1, or K2 under
+``GNSS_SDR_TPU_FUSED=perchannel``) and the eager engine
+(``tracking/dll_pll.py``, kernel K3 per period). With
 ``conf.fused_tracker=None`` the fused engine runs on CUDA and the eager one
 on the CPU; ``True`` or ``False`` forces one (``True`` on the CPU runs K1's
 plain version). ``DllPllConf`` is a verbatim copy of the TPU package's,

@@ -1,7 +1,7 @@
 """The pure-NumPy modules the port copies from the JAX package stay
 verbatim copies: each file equals its original after the package import
-rewrite, apart from its one-line header. A change on either side shows up
-here."""
+rewrite (``gnss_sdr_tpu.`` and ``from gnss_sdr_tpu import`` name the port),
+apart from its one-line header. A change on either side shows up here."""
 
 from pathlib import Path
 
@@ -11,9 +11,29 @@ ROOT = Path(__file__).resolve().parent.parent
 COPIES = [
     "codes/gps_l1_ca.py",
     "codes/resample.py",
+    "config/__init__.py",
+    "config/configuration.py",
     "constants/general.py",
     "constants/gps_l1_ca.py",
+    "io/__init__.py",
+    "io/formats.py",
+    "io/ion_gsms.py",
+    "io/labsat.py",
+    "io/net_sources.py",
+    "io/sources.py",
+    "monitor/status.py",
+    "native/__init__.py",
     "observables/engine.py",
+    "outputs/__init__.py",
+    "outputs/an_packet.py",
+    "outputs/geohash.py",
+    "outputs/geojson.py",
+    "outputs/gpstime.py",
+    "outputs/gpx.py",
+    "outputs/has_text.py",
+    "outputs/kml.py",
+    "outputs/nmea.py",
+    "outputs/rinex.py",
     "pvt/atmosphere.py",
     "pvt/coords.py",
     "pvt/ephemeris.py",
@@ -35,4 +55,6 @@ def test_copy_is_verbatim(rel):
     header, _, body = copy.partition("\n")
     assert header == (f"# Copied from gnss_sdr_tpu/{rel}; only the package "
                       "imports are rewritten.")
-    assert body == original.replace("gnss_sdr_tpu.", "gnss_sdr_tpu_torch.")
+    assert body == original.replace(
+        "gnss_sdr_tpu.", "gnss_sdr_tpu_torch.").replace(
+        "from gnss_sdr_tpu import", "from gnss_sdr_tpu_torch import")

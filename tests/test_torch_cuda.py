@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from gnss_sdr_tpu_torch.ops import correlator as k3
+from gnss_sdr_tpu_torch.ops import track_kernel as k2
 from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
 from gnss_sdr_tpu_torch.ops.correlator import pack_code_table
 
@@ -53,6 +54,34 @@ def test_track_blocked_kernel_matches_plain_cuda(cuda):
     # (reduction order differs; the closed loop amplifies it slowly)
     assert_rows_close(o_p[:, :2], o_k[:, :2], tol=5e-5)
     assert_rows_close(o_p, o_k, tol=2e-3)
+
+
+@pytest.mark.cuda
+def test_track_full_kernel_matches_plain_cuda(cuda):
+    """K2 against its plain version (K1's) and against K1, with a
+    disabled channel and the atan2 flag on one channel."""
+    C, K, L = 7, 20, 1023
+    nmax = int(np.ceil(FS * L / 1.023e6)) + 2
+    kw = dict(fs=FS, code_rate_cps=1.023e6, carrier_freq_hz=1575.42e6,
+              pll_order=3, dll_order=2)
+    codes, wr, wi, scal = tracker_inputs(C, K, L, nmax, 2, 2, 13)
+    scal[2, 7] = 0.0
+    scal[4, 15] = 1.0
+    window = (wr.ravel() + 1j * wi.ravel()).astype(np.complex64)
+    spec = k2.make_full_spec(K, nmax, L, TAPS, **kw)
+    before = k2.track_full.launches
+    o_k = run_tracker(k2.track_full, spec, window, codes, scal, 2, cuda)
+    torch.cuda.synchronize()
+    assert k2.track_full.launches == before + 2
+    o_p = run_tracker(k2.track_full_plain, spec, window, codes, scal, 2,
+                      cuda)
+    assert_rows_close(o_p[:, :2], o_k[:, :2], tol=5e-5)
+    assert_rows_close(o_p, o_k, tol=2e-3)
+    o_1 = run_tracker(k1.track_blocked, k1.make_blocked_spec(
+        K, nmax, L, TAPS, **kw), window, codes, scal, 2, cuda)
+    assert_rows_close(o_1[:, :2], o_k[:, :2], tol=5e-5)
+    assert_rows_close(o_1, o_k, tol=2e-3)
+    assert np.all(o_k[2, :, 17] == scal[2, 0])
 
 
 @pytest.mark.cuda

@@ -1,0 +1,258 @@
+"""The port's .conf/CLI path against the JAX package's.
+
+One 3 s ``ibyte`` capture (the scenario of tests/test_main_cli.py, cached
+through ``cached_capture``) goes through the JAX ``run_from_config`` and
+the port's ``run_from_config(..., device="cpu")`` from the same .conf
+file. Both must acquire the same satellites with equal Doppler, delays
+within one sample, and leave every satellite's channel in the same
+tracking phase. The file also holds the port's CLI flag overrides, its
+conditioner adapters (bit for bit against the JAX adapters), the plans its
+factory builds from conf/gps_l1_file.conf (field by field against the JAX
+factory's) and the parts that raise ``NotImplementedError``.
+"""
+
+import argparse
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from conftest import cached_capture
+from gnss_sdr_tpu import main as jmain
+from gnss_sdr_tpu.conditioner.adapters import ADAPTERS as J_ADAPTERS
+from gnss_sdr_tpu.config.configuration import (
+    FileConfiguration as JFileConfiguration,
+)
+from gnss_sdr_tpu.io import encode_samples
+from gnss_sdr_tpu.receiver.factory import get_signal_plans as j_plans
+from gnss_sdr_tpu.simulate.scenario import GpsScenario, ScenarioConfig
+from gnss_sdr_tpu_torch import main as tmain
+from gnss_sdr_tpu_torch.conditioner import (
+    ADAPTERS as T_ADAPTERS,
+    ConditionerConfig,
+    SignalConditioner,
+)
+from gnss_sdr_tpu_torch.config.configuration import (
+    FileConfiguration,
+    InMemoryConfiguration,
+)
+from gnss_sdr_tpu_torch.receiver.factory import (
+    get_signal_conditioner,
+    get_signal_plans,
+    get_signal_source,
+)
+from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+
+torch.set_num_threads(2)
+
+FS = 2.6e6
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _capture() -> np.ndarray:
+    scen = GpsScenario(ScenarioConfig(
+        fs=FS, tow_start_s=7314.0, duration_s=3.0, cn0_dbhz=47.0,
+        max_sats=5, seed=1))
+    n = int(3.0 * FS)
+    return np.concatenate([scen.generate(s, min(1 << 18, n - s))
+                           for s in range(0, n, 1 << 18)])
+
+
+@pytest.fixture(scope="module")
+def conf_file(tmp_path_factory):
+    d = tmp_path_factory.mktemp("cli")
+    x = cached_capture("torch_main_cli_gps5_3s", _capture)
+    cap = d / "cap.dat"
+    # scale to int8 range: noise sigma ~= 22 counts
+    cap.write_bytes(encode_samples(np.round(x * 16), "ibyte"))
+    conf = d / "rx.conf"
+    conf.write_text(f"""
+[GNSS-SDR]
+GNSS-SDR.internal_fs_sps={int(FS)}
+SignalSource.implementation=File_Signal_Source
+SignalSource.filename={cap}
+SignalSource.item_type=ibyte
+SignalSource.sampling_frequency={int(FS)}
+SignalConditioner.implementation=Signal_Conditioner
+DataTypeAdapter.implementation=Ibyte_To_Complex
+InputFilter.implementation=Pass_Through
+Resampler.implementation=Pass_Through
+Channels_1C.count=5
+Acquisition_1C.implementation=GPS_L1_CA_PCPS_Acquisition
+Acquisition_1C.doppler_max=5000
+Acquisition_1C.doppler_step=250
+Acquisition_1C.max_dwells=2
+Tracking_1C.implementation=GPS_L1_CA_DLL_PLL_Tracking
+Tracking_1C.extend_correlation_symbols=20
+Tracking_1C.enable_fll_pull_in=true
+PVT.implementation=RTKLIB_PVT
+PVT.display_rate_ms=1000
+""")
+    return conf
+
+
+def _capturing(monkeypatch, module):
+    """Record the Receiver that ``module.run_from_config`` builds."""
+    made = []
+    cls = module.Receiver
+
+    def make(*a, **k):
+        made.append(cls(*a, **k))
+        return made[-1]
+
+    monkeypatch.setattr(module, "Receiver", make)
+    return made
+
+
+def _phases(rx) -> dict:
+    return {prn: int(g.tracker.ctl[ch].phase)
+            for g in rx.groups for ch, prn in enumerate(g.channel_prn)
+            if prn}
+
+
+def test_run_from_config_matches_jax(conf_file, monkeypatch, capsys):
+    j_made = _capturing(monkeypatch, jmain)
+    t_made = _capturing(monkeypatch, tmain)
+    js = jmain.run_from_config(JFileConfiguration(conf_file))
+    ts = tmain.run_from_config(FileConfiguration(conf_file), device="cpu")
+    assert len(js.acquired) >= 4
+    assert set(ts.acquired) == set(js.acquired)
+    for key, (dop, delay) in js.acquired.items():
+        t_dop, t_delay = ts.acquired[key]
+        assert t_dop == pytest.approx(dop, abs=1e-6), key
+        assert abs(t_delay - delay) <= 1.0, key
+    j_ph, t_ph = _phases(j_made[0]), _phases(t_made[0])
+    assert t_ph == j_ph
+    assert t_made[0]._idle_channel() == j_made[0]._idle_channel()
+    # the channel-status table printed from the port's tracker state
+    assert "channel status" in capsys.readouterr().out
+
+
+def test_idle_channel():
+    rx = Receiver(ReceiverConfig(fs=FS, num_channels=3, device="cpu"))
+    assert rx._idle_channel() == 0
+    g = rx.groups[0]
+    for ch in range(2):
+        g.tracker.start_channel(ch, prn=ch + 1, code_row=ch,
+                                acq_delay_samples=0.0, acq_doppler_hz=0.0,
+                                acq_samplestamp=0, current_abs_sample=0)
+    assert rx._idle_channel() == 2
+    g.tracker.start_channel(2, prn=3, code_row=2, acq_delay_samples=0.0,
+                            acq_doppler_hz=0.0, acq_samplestamp=0,
+                            current_abs_sample=0)
+    assert rx._idle_channel() is None
+    g.tracker.stop_channel(1)
+    assert rx._idle_channel() == 1
+
+
+def test_cli_flag_overrides():
+    """tests/test_main_cli.py's case: CLI flags override config properties
+    for every configured signal group."""
+    ns = argparse.Namespace(
+        doppler_max=8000, doppler_step=125, pll_bw_hz=25.0, dll_bw_hz=1.5,
+        extend_correlation_ms=10, signal_source=None, s="/tmp/cap.dat",
+        rinex_version="3.02")
+    cfg = InMemoryConfiguration()
+    cfg.set_property("Channels_1C.count", "4")
+    cfg.set_property("Channels_1B.count", "2")
+    tmain.apply_cli_flags(cfg, ns)
+    assert cfg.property("Acquisition_1C.doppler_max", 0) == 8000
+    assert cfg.property("Acquisition_1B.doppler_max", 0) == 8000
+    assert cfg.property("Tracking_1C.extend_correlation_symbols", 0) == 10
+    assert cfg.property("Tracking_1B.dll_bw_hz", 0.0) == 1.5
+    assert cfg.property("SignalSource.filename", "") == "/tmp/cap.dat"
+    assert cfg.property("PVT.rinex_version", "") == "3.02"
+
+
+@pytest.mark.parametrize("fmt,dtype,shape", [
+    ("ibyte", np.int8, (64,)), ("cbyte", np.int8, (64,)),
+    ("ishort", np.int16, (64,)), ("cshort", np.int16, (32, 2)),
+    ("byte", np.int8, (64,)), ("short", np.int16, (64,)),
+    ("passthrough", np.complex64, (32,))])
+def test_adapters_bit_exact(fmt, dtype, shape):
+    rng = np.random.default_rng(3)
+    if dtype == np.complex64:
+        raw = (rng.normal(size=shape) + 1j * rng.normal(size=shape)
+               ).astype(np.complex64)
+    else:
+        info = np.iinfo(dtype)
+        raw = rng.integers(info.min, info.max, size=shape, endpoint=True,
+                           dtype=dtype)
+    want = np.asarray(J_ADAPTERS[fmt](jnp.asarray(raw)))
+    got = T_ADAPTERS[fmt](torch.as_tensor(raw)).numpy()
+    assert got.dtype == want.dtype == np.complex64
+    np.testing.assert_array_equal(got.view(np.float32),
+                                  want.view(np.float32))
+    cond = SignalConditioner(ConditionerConfig(input_format=fmt),
+                             device="cpu")
+    np.testing.assert_array_equal(cond.process(raw).view(np.float32),
+                                  want.view(np.float32))
+
+
+def test_factory_plans_match_jax():
+    path = ROOT / "conf" / "gps_l1_file.conf"
+    jp = j_plans(JFileConfiguration(path), FS)
+    tp = get_signal_plans(FileConfiguration(path), FS)
+    assert [p.name for p in tp] == [p.name for p in jp] == ["1C"]
+    for a, b in zip(jp, tp):
+        assert b.num_channels == a.num_channels
+        assert b.search_prns == a.search_prns
+        for conf in ("acq_conf", "trk_conf"):
+            ja, ta = getattr(a, conf), getattr(b, conf)
+            for f in dataclasses.fields(ja):
+                assert getattr(ta, f.name) == getattr(ja, f.name), (
+                    conf, f.name)
+
+
+def _cfg(**props) -> InMemoryConfiguration:
+    cfg = InMemoryConfiguration()
+    for k, v in props.items():
+        cfg.set_property(k.replace("__", "."), str(v))
+    return cfg
+
+
+def test_fir_filter_raises():
+    for impl in ("Fir_Filter", "Freq_Xlating_Fir_Filter", "Notch_Filter",
+                 "Pulse_Blanking_Filter", "Beamformer_Filter"):
+        cfg = _cfg(InputFilter__implementation=impl)
+        with pytest.raises(NotImplementedError):
+            get_signal_conditioner(cfg, device="cpu")
+    cfg = _cfg(Resampler__implementation="Direct_Resampler",
+               Resampler__sample_freq_out=2e6)
+    with pytest.raises(NotImplementedError):
+        get_signal_conditioner(cfg, device="cpu")
+
+
+def test_galileo_group_raises():
+    cfg = _cfg(Channels_1B__count=2)
+    with pytest.raises(NotImplementedError, match="galileo_e1b_plan"):
+        get_signal_plans(cfg, 4e6)
+
+
+def test_signal_generator_raises():
+    with pytest.raises(NotImplementedError):
+        get_signal_source(_cfg(SignalSource__implementation="SignalGenerator"))
+
+
+@pytest.mark.parametrize("key,value", [
+    ("GNSS-SDR.telecommand_enabled", "true"),
+    ("GNSS-SDR.SUPL_gps_enabled", "true"),
+    ("GNSS-SDR.assistance_xml", "gps_assistance.xml"),
+    ("GNSS-SDR.command_fifo", "/tmp/gnss_fifo"),
+    ("PVT.blq_file", "ocean.blq")])
+def test_unported_control_plane_raises(conf_file, key, value):
+    cfg = FileConfiguration(conf_file)
+    cfg.set_property(key, value)
+    with pytest.raises(NotImplementedError, match="queue item 16"):
+        tmain.run_from_config(cfg, device="cpu")
+
+
+def test_main_needs_cuda_unless_asked(conf_file):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmain.main(["-c", str(conf_file), "--max_seconds", "0.5"])
