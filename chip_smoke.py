@@ -9,10 +9,14 @@ through K2) over the same blocks, runs the receiver through K1 and the
 .conf/CLI entry point (``gnss_sdr_tpu_torch.main``) from an ``ibyte``
 capture through K1 and, under ``GNSS_SDR_TPU_FUSED=perchannel``, through
 K2, and checks every run's fixes against the position gates of
-``tests/test_position.py``. Every phase prints one JSON line; any failure
-exits nonzero. The last two lines are the kernel table and
-``{"ok": true, "device": {...}}``. Needs a CUDA device and the
-repository's ``gnss_sdr_tpu_torch`` package; imports no JAX.
+``tests/test_position.py``. Then the kernel-bench path: K4 against its
+plain version, the port's ``tools/kbench.py`` (K2 and K4 at C = 32,
+K = 200, with K1 timed at the same shape) and ``tools/mosaic_probe.py``
+(every P1 variant against its plain version, then ns per period over
+K = 2000). Every phase prints one JSON line; any failure exits nonzero.
+The last two lines are the kernel table and ``{"ok": true, "device":
+{...}}``. Needs a CUDA device and the repository's ``gnss_sdr_tpu_torch``
+package; imports no JAX.
 """
 
 from __future__ import annotations
@@ -42,6 +46,14 @@ ROOT = Path(__file__).resolve().parent
 # and sums
 FUSED_OPS_PER_SAMPLE = 2 + 20 + 6 + 2 + 3 * (12 + 4)
 K3_OPS_PER_SAMPLE = 2 + 20 + 6 + 2 + 3 * (20 + 4)
+# P1: operations per element of v and period, counted from the plain
+# versions (tools/mosaic_probe.py): the add of acc and the consuming sum,
+# plus each body's own (sincosf ~20 each way as above, vec20 20 mul+add,
+# lanereduce8 8 mul+add); gathers and copies are loads, not operations
+P1_OPS_PER_ELEMENT = {"baseline": 2, "gather1": 2, "gather3": 6,
+                      "qloop8": 2, "sincos": 2 + 2 * 20 + 1, "vec20": 42,
+                      "matreduce": 2, "lanereduce8": 1 + 16, "staging": 1,
+                      "narrow": 300, "out store": 1}
 # lanes compared between fused trackers; period length and position exact
 CHECK_LANES = [0, 1, 2, 3, 10, 11, 12, 13, 14, 17, 20, 21, 22, 23,
                32, 33, 34, 35, 36, 37]
@@ -52,10 +64,11 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     """Mean device time of ``fn`` over ``reps`` back-to-back calls, by CUDA
-    events, after one warm-up call."""
-    fn()
+    events, after one warm-up call unless ``warm`` is False."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -88,14 +101,24 @@ def synthetic_signal(tbl: np.ndarray, n: int, dops, delays, seed: int):
     return (sig + noise[:, 0] + 1j * noise[:, 1]).astype(np.complex64)
 
 
-def rows_rel_err(name: str, ref: np.ndarray, got: np.ndarray, K: int) -> dict:
+def fused_ops_per_sample(num_taps: int) -> int:
+    return FUSED_OPS_PER_SAMPLE + (num_taps - 3) * (12 + 4)
+
+
+def simple_lanes(num_taps: int) -> list[int]:
+    """K4's output lanes: the taps, then lanes 10-19."""
+    return list(range(2 * num_taps)) + list(range(10, 20))
+
+
+def rows_rel_err(name: str, ref: np.ndarray, got: np.ndarray, K: int,
+                 lanes=CHECK_LANES) -> dict:
     """Worst relative difference over the checked lanes, within 5e-5 over
     the first 2 periods and 2e-3 over all K; period lengths and positions
     equal."""
     rels = {}
     for upto, tol in ((2, 5e-5), (K, 2e-3)):
         worst = 0.0
-        for ln in CHECK_LANES:
+        for ln in lanes:
             a, b = ref[:, :upto, ln], got[:, :upto, ln]
             worst = max(worst, float(np.abs(a - b).max())
                         / max(1e-6, float(np.abs(a).max())))
@@ -260,6 +283,212 @@ def cli_phase(capture: np.ndarray, scen, tmp: Path) -> dict:
         raise AssertionError(f"CLI exited {proc.returncode}: "
                              f"{proc.stderr[-2000:]}")
     return runs
+
+
+def k4_phase(dev, tbl, sig, dops, delays, kernels) -> None:
+    """Phase 8: K4 against its plain version at C = 8, K = 20 and 1000 on
+    phase 4's signal: T = 3 order 2, T = 5 order 3, and T = 3 with one
+    channel disabled (K4 advances it all the same)."""
+    from gnss_sdr_tpu_torch.ops import track_kernel as tk
+    from gnss_sdr_tpu_torch.ops.slots import LANES
+    from gnss_sdr_tpu_torch.receiver.plans import gps_l1ca_plan
+    from gnss_sdr_tpu_torch.tracking.tracker import Tracker
+
+    C, L = len(dops), 1023
+    window = torch.as_tensor(sig, device=dev)
+    cases = (("t3_order2", [-0.25, 0.0, 0.25], 2, None),
+             ("t5_order3", [-0.5, -0.25, 0.0, 0.25, 0.5], 3, None),
+             ("t3_disabled", [-0.25, 0.0, 0.25], 2, 3))
+    for K in (20, 1000):
+        plan = gps_l1ca_plan(FS, num_channels=C, steps_per_block=K)
+        conf = plan.trk_conf
+        trk = Tracker(conf, tbl, device=dev)
+        for ch in range(C):
+            trk.start_channel(ch, prn=ch + 1, code_row=ch,
+                              acq_delay_samples=delays[ch],
+                              acq_doppler_hz=dops[ch] + 30.0,
+                              acq_samplestamp=0, current_abs_sample=0)
+        st = trk.state.replace(pos=torch.as_tensor(
+            trk.pos_abs.astype(np.int32), device=dev))
+        codes = torch.as_tensor(trk.codes, device=dev)
+        for name, taps, order, disabled in cases:
+            scal = tk.fused_scalars_from_state(st, conf).contiguous()
+            if disabled is not None:
+                scal[disabled, 7] = 0.0
+            spec = tk.make_simple_spec(
+                K, conf.max_step_samples, L, taps, fs=FS,
+                code_rate_cps=1.023e6, carrier_freq_hz=1575.42e6,
+                pll_bw_hz=conf.pll_bw_hz, dll_bw_hz=conf.dll_bw_hz,
+                pll_order=order, dll_order=order)
+            args = (window, codes, scal, spec)
+            o_k = tk.track_simple(*args).cpu().numpy()
+            o_p = tk.track_simple_plain(*args).cpu().numpy()
+            lanes = simple_lanes(len(taps))
+            rels = rows_rel_err(f"K4 {name}", o_p, o_k, K, lanes)
+            if np.any(o_k[:, :, 20:] != 0.0):
+                raise AssertionError(f"K4 {name}: lanes 20-127 not zero")
+            if disabled is not None and not np.all(
+                    np.diff(o_k[disabled, :, 17]) > 0):
+                raise AssertionError("K4 did not advance the disabled channel")
+            out = torch.empty((C, K, LANES), dtype=torch.float32, device=dev)
+            ms = cuda_ms(lambda: tk.launch_simple(*args, out),
+                         50 if K == 20 else 5)
+            plain_ms = cuda_ms(lambda: tk.track_simple_plain(*args), 1)
+            n_total = float(o_p[:, :, 10].sum())
+            b_ms, b_by = bound(
+                n_total * 8 + codes.numel() * 4 + scal.numel() * 4
+                + C * K * LANES * 4, n_total * fused_ops_per_sample(len(taps)))
+            emit("k4_vs_plain", case=name, C=C, K=K, n_max=spec.n_max, L=L,
+                 T=len(taps), order=order, exact_lanes=EXACT_LANES, **rels,
+                 max_abs_err=float(np.abs(o_p[:, :, lanes]
+                                          - o_k[:, :, lanes]).max()),
+                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 msamples_per_s=n_total / (ms * 1e-3) / 1e6)
+
+
+def kbench_phase(dev, kernels) -> dict:
+    """Phase 9: the port's tools/kbench.py for ``full`` (K2) and ``simple``
+    (K4), each with its launches counted (1 warm-up + 10 timed); then K1,
+    K2 and K4 held against their plain versions and timed alone at the
+    tool's shape (C = 32, K = 200, one launch from the seed scalars)."""
+    from gnss_sdr_tpu_torch.ops import track_kernel as tk
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.ops.slots import LANES
+    from gnss_sdr_tpu_torch.tools import kbench
+
+    runs = {}
+    for kind, counter in (("full", tk.track_full),
+                          ("simple", tk.track_simple)):
+        k1.track_blocked.launches = 0
+        tk.track_full.launches = 0
+        tk.track_simple.launches = 0
+        r = kbench.run(kind, device=dev)
+        torch.cuda.synchronize()
+        counts = (k1.track_blocked.launches, tk.track_full.launches,
+                  tk.track_simple.launches)
+        want = 1 + kbench.ITERS
+        if counter.launches != want or sum(counts) != want:
+            raise AssertionError(f"kbench {kind}: launches (K1, K2, K4) = "
+                                 f"{counts}, want {want} of one kernel")
+        if not math.isfinite(r["checksum"]):
+            raise AssertionError(f"kbench {kind}: checksum {r['checksum']}")
+        runs[kind] = dict(r, launches=counter.launches)
+        emit("kbench_run", **runs[kind])
+
+    C, K = kbench.CHANNELS, kbench.STEPS
+    shape = {}
+    for name in ("track_blocked", "track_full", "track_simple"):
+        kind = "simple" if name == "track_simple" else "full"
+        conf, spec, window, codes, scal = kbench.build(kind, device=dev)
+        pos = torch.zeros((C,), dtype=torch.int32, device=window.device)
+        out = torch.empty((C, K, LANES), dtype=torch.float32,
+                          device=window.device)
+        if name == "track_simple":
+            args = (window, codes, scal, spec)
+            kern, plain, launch = (tk.track_simple, tk.track_simple_plain,
+                                   tk.launch_simple)
+            lanes = simple_lanes(spec.num_taps)
+        else:
+            if name == "track_blocked":
+                spec = k1.make_blocked_spec(
+                    K, spec.n_max, spec.code_len, spec.tap_offsets, fs=FS,
+                    code_rate_cps=spec.code_rate_cps,
+                    carrier_freq_hz=spec.carrier_freq_hz,
+                    pll_order=spec.pll_order, dll_order=spec.dll_order,
+                    interp_code=spec.interp_code)
+            args = (window, codes, scal, pos, spec)
+            kern, plain, launch = {
+                "track_blocked": (k1.track_blocked, k1.track_blocked_plain,
+                                  k1.launch),
+                "track_full": (tk.track_full, tk.track_full_plain,
+                               tk.launch)}[name]
+            lanes = CHECK_LANES
+        o_k = kern(*args).cpu().numpy()
+        o_p = plain(*args).cpu().numpy()
+        rels = rows_rel_err(f"{name} at the kbench shape", o_p, o_k, K, lanes)
+        ms = cuda_ms(lambda: launch(*args, out), 5)
+        plain_ms = cuda_ms(lambda: plain(*args), 1)
+        n_total = float(o_p[:, :, 10].sum())
+        b_ms, b_by = bound(
+            n_total * 8 + codes.numel() * 4 + scal.numel() * 4
+            + (C * 4 if name != "track_simple" else 0) + C * K * LANES * 4,
+            n_total * fused_ops_per_sample(spec.num_taps))
+        shape[name] = dict(
+            max_abs_err=float(np.abs(o_p[:, :, lanes]
+                                     - o_k[:, :, lanes]).max()),
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            msamples_per_s=n_total / (ms * 1e-3) / 1e6,
+            us_per_ch_period=ms * 1e3 / (C * K))
+        emit("kbench_shape", kernel=name, C=C, K=K, n_max=spec.n_max,
+             exact_lanes=EXACT_LANES, **rels, **shape[name])
+    kernels["track_simple"] = dict(shape["track_simple"],
+                                   launches=runs["simple"]["launches"])
+    return {"runs": runs, "shape": shape}
+
+
+def probe_phase(dev, kernels) -> None:
+    """Phase 10: every P1 variant against its plain version over K = 16
+    periods (per-channel sums at the first and the last period within
+    SUMS_TOL, output and out-store buffer exact), then the port's
+    tools/mosaic_probe.py with its launches counted: ns per period over
+    K = 2000, best of 2 x 30 launches, and each variant's margin over the
+    baseline."""
+    from gnss_sdr_tpu_torch.tools import mosaic_probe as p1
+
+    x = p1.probe_input(dev)
+    checks = {}
+    for v in p1.VARIANTS:
+        out, sums, big = p1.probe(v, x, 16)
+        w_out, w_sums, w_big = p1.probe_plain(v, x, 16)
+        err = p1.sums_err(sums, w_sums)
+        if not (err < p1.SUMS_TOL and torch.equal(out, w_out)
+                and (big is None or torch.equal(big, w_big))):
+            raise AssertionError(f"P1 {v} disagrees with its plain version: "
+                                 f"sums {err}")
+        checks[v] = dict(sums_err=err, max_abs_err=float(
+            (sums - w_sums).abs().max()))
+    emit("probe_vs_plain", K=16, tol=p1.SUMS_TOL, checks=checks)
+
+    p1.probe.launches = 0
+    ns = p1.run_all(device=dev)
+    torch.cuda.synchronize()
+    launches = p1.probe.launches
+    want = len(p1.VARIANTS) * (1 + 2 * p1.ITERS)
+    if launches != want:
+        raise AssertionError(f"P1: {launches} launches, want {want}")
+
+    rows = []
+    for v in p1.VARIANTS:
+        plain_ms = cuda_ms(lambda: p1.probe_plain(v, x, p1.K), 1, warm=False)
+        if v == "narrow":
+            elems, nbytes = p1.C, p1.C * 4
+        elif v == "out store":
+            elems = p1.C * p1.LANES
+            nbytes = elems * 4 + p1.C * p1.OUT_ROWS * p1.LANES * 4
+        elif v == "staging":
+            elems, nbytes = p1.BR * p1.LANES, (p1.ROWS_P + 1) * p1.LANES * 4
+        else:
+            elems, nbytes = p1.BR * p1.LANES, p1.BR * p1.LANES * 4
+        b_ms, b_by = bound(nbytes + 8 * p1.LANES * 4 + p1.C * 2 * 4,
+                           elems * P1_OPS_PER_ELEMENT[v] * p1.K)
+        rows.append(dict(variant=v, ns_per_period=ns[v],
+                         marginal_ns=ns[v] - ns["baseline"],
+                         ms=ns[v] * p1.K * 1e-6, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, **checks[v]))
+    emit("probe", K=p1.K, iters=p1.ITERS, reps=2, launches=launches,
+         variants=rows)
+    t_ms = sum(r["ms"] for r in rows)
+    by_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    kernels["probe"] = dict(
+        launches=launches, max_abs_err=max(r["max_abs_err"] for r in rows),
+        ms=t_ms, plain_ms=sum(r["plain_ms"] for r in rows),
+        bound_ms=sum(r["bound_ms"] for r in rows),
+        bound_by="operations" if by_ops >= sum(
+            r["bound_ms"] for r in rows) / 2 else "bytes",
+        variants=[{k: r[k] for k in ("variant", "ns_per_period",
+                                     "marginal_ns", "ms", "plain_ms",
+                                     "bound_ms", "bound_by")}
+                  for r in rows])
 
 
 def main() -> int:
@@ -489,7 +718,16 @@ def main() -> int:
         runs = cli_phase(capture, scen, Path(tmp))
     kernels["track_full"]["launches"] = runs["track_full"]["k2_launches"]
 
-    # ---- 8. kernels ------------------------------------------------------
+    # ---- 8. K4 against its plain version ---------------------------------
+    k4_phase(dev, tbl, sig, dops, delays, kernels)
+
+    # ---- 9. the kernel bench (K2 and K4), K1 at its shape ----------------
+    kbench_phase(dev, kernels)
+
+    # ---- 10. the primitive-cost probe (P1) -------------------------------
+    probe_phase(dev, kernels)
+
+    # ---- 11. kernels -----------------------------------------------------
     meta = {
         "track_blocked": dict(
             route="cuda", source="gnss_sdr_tpu_torch/csrc/track_blocked.cu",
@@ -500,13 +738,22 @@ def main() -> int:
         "correlator": dict(
             route="cuda", source="gnss_sdr_tpu_torch/csrc/correlator.cu",
             replaces="gnss_sdr_tpu/ops/correlator.py:46"),
+        "track_simple": dict(
+            route="cuda", source="gnss_sdr_tpu_torch/csrc/track_simple.cu",
+            replaces="gnss_sdr_tpu/ops/track_kernel.py:107"),
+        "probe": dict(
+            route="cuda", source="gnss_sdr_tpu_torch/csrc/probe.cu",
+            replaces="tools/mosaic_probe.py:50"),
     }
     table = [{"name": n, **meta[n], "launches": kernels[n]["launches"],
               "max_abs_err": kernels[n]["max_abs_err"],
               "ms": kernels[n]["ms"], "plain_ms": kernels[n]["plain_ms"],
               "bound_ms": kernels[n]["bound_ms"],
-              "bound_by": kernels[n]["bound_by"], "library_ms": None}
-             for n in ("track_blocked", "track_full", "correlator")]
+              "bound_by": kernels[n]["bound_by"], "library_ms": None,
+              **({"variants": kernels[n]["variants"]} if n == "probe"
+                 else {})}
+             for n in ("track_blocked", "track_full", "correlator",
+                       "track_simple", "probe")]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,11 @@ kernels under ``csrc/``: the K-period fused tracker in two mappings, one
 CTA per channel (K1, ``ops/track_kernel_blocked.py``) and one warp per
 channel (K2, ``ops/track_kernel.py``, under
 ``GNSS_SDR_TPU_FUSED=perchannel``), and the one-period correlator (K3,
-``ops/correlator.py``). Each has a plain PyTorch version beside it, which
-the wrappers use only for tensors that lie on the CPU.
+``ops/correlator.py``). The kernel-bench tools (``tools/kbench.py``,
+``tools/mosaic_probe.py``) add the simple fused tracker (K4,
+``ops/track_kernel.py``) and the primitive-cost probe (P1). Each kernel
+has a plain PyTorch version beside it, which the wrappers use only for
+tensors that lie on the CPU.
 
 Device policy: entry points take a ``device`` and default to ``"cuda"``.
 Without CUDA they raise unless the caller asked for ``"cpu"``; there is no

@@ -65,7 +65,7 @@ track_blocked_kernel(const float2* __restrict__ window,
   State<T> st;
   if (tid == 0) {
     load_state<T>(st, scalars + (size_t)c * P.ns, pos_in[c], P);
-    period_geometry<T>(st, P);
+    period_geometry(st, P);
     s_pos = st.pos;
     s_n = (int)st.n;
     s_geo[0] = st.rem;
@@ -111,7 +111,7 @@ track_blocked_kernel(const float2* __restrict__ window,
         taps[j] = v;
       }
       close_loop<T>(st, P, taps, s_row);
-      period_geometry<T>(st, P);
+      period_geometry(st, P);
       s_pos = st.pos;
       s_n = (int)st.n;
       s_geo[0] = st.rem;

@@ -63,7 +63,7 @@ track_full_kernel(const float2* __restrict__ window,
 
   State<T> st;
   load_state<T>(st, scalars + (size_t)c * P.ns, pos_in[c], P);
-  period_geometry<T>(st, P);
+  period_geometry(st, P);
 
   float offs[T];
 #pragma unroll
@@ -97,7 +97,7 @@ track_full_kernel(const float2* __restrict__ window,
 
     // every lane holds the same state and writes the same row values
     close_loop<T>(st, P, taps, s_row);
-    period_geometry<T>(st, P);
+    period_geometry(st, P);
     __syncwarp();
     reinterpret_cast<float4*>(out + ((size_t)c * P.n_periods + it) * LANES)
         [lane] = reinterpret_cast<const float4*>(s_row)[lane];

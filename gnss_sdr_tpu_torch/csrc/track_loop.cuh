@@ -1,6 +1,8 @@
 // The per-period loop of the fused GPS trackers, shared by the two CUDA
 // mappings of it: csrc/track_blocked.cu (K1, one CTA per channel) and
-// csrc/track_full.cu (K2, one warp per channel).
+// csrc/track_full.cu (K2, one warp per channel). The simple tracker K4
+// (csrc/track_simple.cu) takes the period geometry and the per-sample step
+// from here and has its own loop closure.
 //
 // Scalar input slots and output lanes are those of ops/slots.py. The
 // loop-closure section is float32 exactly as the plain version
@@ -101,8 +103,10 @@ struct State {
 };
 
 // period length from the code NCO: round, then correct a negative remnant
-template <int T>
-__device__ void period_geometry(State<T>& s, const Params& P) {
+// (any loop state with rem, dcode and the geometry fields: K1/K2's State,
+// K4's SimpleState in csrc/track_simple.cu)
+template <class S>
+__device__ void period_geometry(S& s, const Params& P) {
   s.delta = s.dcode * P.inv_fs;
   s.code_step = P.nominal_step + s.delta;
   const float small = s.rem + P.c0 + P.spcf * s.delta;

@@ -26,9 +26,12 @@ BUILD_ROOT = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 # per-source flags: the fused trackers' period-length rule must round like
-# the plain version, so nvcc may not contract a*b+c into an FMA there
+# the plain version, so nvcc may not contract a*b+c into an FMA there; the
+# probe's multiply-add chains round like their plain versions the same way
 FILE_FLAGS = {"track_blocked.cu": ["-fmad=false"],
-              "track_full.cu": ["-fmad=false"]}
+              "track_full.cu": ["-fmad=false"],
+              "track_simple.cu": ["-fmad=false"],
+              "probe.cu": ["-fmad=false"]}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -131,6 +134,26 @@ def _declare(lib: ctypes.CDLL) -> None:
         p,               # stream
     ]
     lib.gnss_correlator.restype = i
+    lib.gnss_track_simple.argtypes = [
+        p, i,            # window (float2 [L]), L
+        p, i,            # codes (f32 [C, code_len]), code_len
+        p,               # scalars (f32 [C, 10])
+        p,               # out (f32 [C, K, 128])
+        i, i, i,         # C, K, n_max
+        p, i,            # params (host f32 [32]), num_taps
+        i, i, i,         # pll_order, dll_order, interp_code
+        p,               # stream
+    ]
+    lib.gnss_track_simple.restype = i
+    lib.gnss_probe.argtypes = [
+        i,               # variant (tools/mosaic_probe.py VARIANTS)
+        p,               # x (f32 [4096, 128])
+        p, p, p,         # out (f32 [8, 128]), sums (f32 [32, 2]),
+                         # big (f32 [32, 200, 128], out store only)
+        i,               # K
+        p,               # stream
+    ]
+    lib.gnss_probe.restype = i
     lib.gnss_error_string.argtypes = [i]
     lib.gnss_error_string.restype = ctypes.c_char_p
 

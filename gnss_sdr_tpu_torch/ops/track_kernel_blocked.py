@@ -154,27 +154,35 @@ def make_blocked_spec(n_periods: int, n_max: int, code_len: int,
                        bool(interp_code))
 
 
-def check_inputs(window, codes, scalars, pos, spec: BlockedSpec) -> None:
-    """Raise unless the inputs are what K1 and K2 take (dtypes, shapes,
-    one device, contiguous) and every enabled channel's K periods lie
-    inside the window."""
+def check_layout(window, codes, scalars, code_len: int, num_scalars: int,
+                 *others) -> None:
+    """Raise unless the window is complex64 [W], the chip table float32
+    [C, code_len] and the scalar block float32 [C, num_scalars], all of
+    them (and ``others``) on one device and contiguous."""
     dev = window.device
     if window.dtype != torch.complex64 or window.dim() != 1:
         raise ValueError("window must be complex64 [W]")
+    if (scalars.dtype != torch.float32 or scalars.dim() != 2
+            or scalars.shape[1] != num_scalars):
+        raise ValueError(f"scalars must be float32 [C, {num_scalars}]")
     c = scalars.shape[0]
-    if (codes.dtype != torch.float32
-            or tuple(codes.shape) != (c, spec.code_len)):
-        raise ValueError(f"codes must be float32 [C, {spec.code_len}]")
-    if (scalars.dtype != torch.float32
-            or tuple(scalars.shape) != (c, spec.num_scalars)):
-        raise ValueError(f"scalars must be float32 [C, {spec.num_scalars}]")
-    if pos.dtype != torch.int32 or tuple(pos.shape) != (c,):
-        raise ValueError("pos must be int32 [C]")
-    for t in (window, codes, scalars, pos):
+    if codes.dtype != torch.float32 or tuple(codes.shape) != (c, code_len):
+        raise ValueError(f"codes must be float32 [C, {code_len}]")
+    for t in (window, codes, scalars, *others):
         if t.device != dev:
             raise ValueError("all inputs must be on one device")
         if not t.is_contiguous():
             raise ValueError("inputs must be contiguous")
+
+
+def check_inputs(window, codes, scalars, pos, spec: BlockedSpec) -> None:
+    """Raise unless the inputs are what K1 and K2 take (dtypes, shapes,
+    one device, contiguous) and every enabled channel's K periods lie
+    inside the window."""
+    c = scalars.shape[0]
+    if pos.dtype != torch.int32 or tuple(pos.shape) != (c,):
+        raise ValueError("pos must be int32 [C]")
+    check_layout(window, codes, scalars, spec.code_len, spec.num_scalars, pos)
     # enabled channels read up to pos + K * n_max (one device read)
     en = scalars[:, S_EN] > 0.5
     p = pos.to(torch.int64)
@@ -192,6 +200,66 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).float()
 
 
+def period_geometry(rem, dcode, inv_fs, nominal_step, c0, spcf, n_max: int):
+    """The period length from the code NCO: round, then correct a negative
+    remnant (``csrc/track_loop.cuh::period_geometry``). Takes and returns
+    float32 [C] (the constants as 0-dim tensors): delta, code_step, n."""
+    delta = dcode * inv_fs
+    code_step = nominal_step + delta
+    small = rem + c0 + spcf * delta
+    n_f = spcf - small / code_step
+    n0 = torch.floor(n_f + 0.5)
+    rem0 = rem + ((n0 - spcf) * code_step + c0 + spcf * delta)
+    n = torch.clamp(n0 + (rem0 < 0.0).to(torch.float32), 1.0, float(n_max))
+    return delta, code_step, n
+
+
+def tap_sums(window, codes, posi, n, rem, code_step, phase0, dstep, offs,
+             interp_code: bool, n_max: int) -> list:
+    """One period's tap sums [re_0, im_0, re_1, ...] per channel
+    (``csrc/track_loop.cuh::accumulate_sample``): the samples at
+    ``posi + k`` for k < n (zeros outside the window), wiped off at the
+    carrier phase ``phase0 + dstep * k``, times the soft replica at the
+    code phase ``rem + code_step * k + offs[t]``; both ramps rounded once."""
+    dev = window.device
+    f32 = torch.float32
+    w_len = window.shape[0]
+    length = codes.shape[1]
+    zero = torch.zeros((), dtype=f32, device=dev)
+    kf = torch.arange(n_max, dtype=f32, device=dev)
+    ki = torch.arange(n_max, dtype=torch.int64, device=dev)
+    ni = n.to(torch.int64)
+    idx = posi[:, None] + ki[None, :]
+    valid = ki[None, :] < ni[:, None]
+    inside = valid & (idx >= 0) & (idx < w_len)
+    x = window[idx.clamp(0, w_len - 1)]
+    mask = valid.to(f32)
+    xr = torch.where(inside, x.real, zero)
+    xi = torch.where(inside, x.imag, zero)
+    ph = _fma(dstep[:, None], kf[None, :], phase0[:, None])
+    sw, cw = torch.sin(ph), torch.cos(ph)
+    wr = (xr * cw + xi * sw) * mask
+    wi = (xi * cw - xr * sw) * mask
+    cph = _fma(code_step[:, None], kf[None, :], rem[:, None])
+    taps = []
+    for off in offs:
+        tap_ph = cph + off
+        if interp_code:
+            fl = torch.floor(tap_ph + 0.5)
+            m = fl.to(torch.int64) % length
+            cur = torch.gather(codes, 1, m)
+            prev = torch.gather(codes, 1, (m - 1) % length)
+            wgt = torch.clamp((tap_ph - fl) / code_step[:, None] + 0.5,
+                              0.0, 1.0)
+            v = prev + (cur - prev) * wgt
+        else:
+            m = torch.floor(tap_ph).to(torch.int64) % length
+            v = torch.gather(codes, 1, m)
+        taps.append((wr * v).sum(1))
+        taps.append((wi * v).sum(1))
+    return taps
+
+
 def track_blocked_plain(window, codes, scalars, pos,
                         spec: BlockedSpec) -> torch.Tensor:
     """Plain PyTorch version of K1: a loop over the K periods, vectorised
@@ -202,8 +270,6 @@ def track_blocked_plain(window, codes, scalars, pos,
     t = spec.num_taps
     p = t // 2
     n_max = spec.n_max
-    length = spec.code_len
-    w_len = window.shape[0]
     k_const = spec.constants()
 
     def const(v) -> torch.Tensor:
@@ -240,53 +306,17 @@ def track_blocked_plain(window, codes, scalars, pos,
     accd_re, accd_im, accd_cnt = col(S_ACCD_RE), col(S_ACCD_IM), col(S_ACCD_CNT)
     acc = [col(S_ACC0 + j) for j in range(2 * t)]
 
-    kf = torch.arange(n_max, dtype=f32, device=dev)
-    ki = torch.arange(n_max, dtype=torch.int64, device=dev)
     out = torch.zeros((c, spec.n_periods, LANES), dtype=f32, device=dev)
 
     def nz(x):
         return torch.where(x.abs() < 1e-20, const(1e-20), x)
 
     for i in range(spec.n_periods):
-        # ---- period length from the code NCO ----------------------------
-        delta = dcode * inv_fs
-        code_step = nominal_step + delta
-        small = rem + c0 + spcf * delta
-        n_f = spcf - small / code_step
-        n0 = torch.floor(n_f + 0.5)
-        rem0 = rem + ((n0 - spcf) * code_step + c0 + spcf * delta)
-        n = torch.clamp(n0 + (rem0 < 0.0).to(f32), 1.0, float(n_max))
-
-        # ---- samples, wipeoff, replica, tap sums -------------------------
+        delta, code_step, n = period_geometry(rem, dcode, inv_fs,
+                                              nominal_step, c0, spcf, n_max)
         ni = n.to(torch.int64)
-        idx = posi[:, None] + ki[None, :]
-        inside = (ki[None, :] < ni[:, None]) & (idx >= 0) & (idx < w_len)
-        x = window[idx.clamp(0, w_len - 1)]
-        mask = (ki[None, :] < ni[:, None]).to(f32)
-        xr = torch.where(inside, x.real, zero)
-        xi = torch.where(inside, x.imag, zero)
-        dstep = dphase_hz * doppler
-        ph = _fma(dstep[:, None], kf[None, :], phase0[:, None])
-        sw, cw = torch.sin(ph), torch.cos(ph)
-        wr = (xr * cw + xi * sw) * mask
-        wi = (xi * cw - xr * sw) * mask
-        cph = _fma(code_step[:, None], kf[None, :], rem[:, None])
-        taps = []
-        for ti in range(t):
-            tap_ph = cph + offs[ti]
-            if spec.interp_code:
-                fl = torch.floor(tap_ph + 0.5)
-                m = fl.to(torch.int64) % length
-                cur = torch.gather(codes, 1, m)
-                prev = torch.gather(codes, 1, (m - 1) % length)
-                wgt = torch.clamp((tap_ph - fl) / code_step[:, None] + 0.5,
-                                  0.0, 1.0)
-                v = prev + (cur - prev) * wgt
-            else:
-                m = torch.floor(tap_ph).to(torch.int64) % length
-                v = torch.gather(codes, 1, m)
-            taps.append((wr * v).sum(1))
-            taps.append((wi * v).sum(1))
+        taps = tap_sums(window, codes, posi, n, rem, code_step, phase0,
+                        dphase_hz * doppler, offs, spec.interp_code, n_max)
         d_re, d_im = taps[2 * p], taps[2 * p + 1]
 
         # ---- coherent accumulation --------------------------------------

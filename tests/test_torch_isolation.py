@@ -64,3 +64,22 @@ def test_entry_points_raise_without_cuda():
         with pytest.raises(RuntimeError):
             make()
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_tools_raise_without_cuda():
+    """The kernel-bench tools default to the card and raise without one;
+    ``device="cpu"`` runs their plain versions."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from gnss_sdr_tpu_torch.tools import kbench, mosaic_probe
+
+    for make in (lambda: kbench.run("simple"),
+                 lambda: kbench.run("full", C=1, K=2, iters=1),
+                 lambda: mosaic_probe.timed("baseline", "baseline"),
+                 lambda: mosaic_probe.run_all(k=1, iters=1, reps=1)):
+        with pytest.raises(RuntimeError):
+            make()
+    assert kbench.run("simple", C=1, K=2, iters=1, device="cpu")["kind"] == (
+        "simple")
+    assert mosaic_probe.timed("narrow", "narrow", reps=1, k=1, iters=1,
+                              device="cpu") > 0

@@ -87,10 +87,10 @@ def run_tracker(fn, spec, window, codes, scal, launches, device):
     return np.concatenate(outs, axis=1)
 
 
-def assert_rows_close(o1, o2, tol=5e-5, exact=True):
+def assert_rows_close(o1, o2, tol=5e-5, exact=True, lanes=CHECK_LANES):
     """Relative difference per checked lane below ``tol``; the period
     length and position lanes equal."""
-    for ln in CHECK_LANES:
+    for ln in lanes:
         a, b = o1[:, :, ln], o2[:, :, ln]
         scale = max(1e-6, float(np.abs(a).max()))
         rel = float(np.abs(a - b).max()) / scale
