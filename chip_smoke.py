@@ -64,17 +64,35 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def cuda_ms(fn, reps: int, warm: bool = True) -> float:
+# cycles the stream sleeps before the timed calls start, per call and at
+# least: at ~1.7-2 GHz about 250 us a call (the host takes 60-100 us to
+# queue one K1 launch) and 2 ms
+QUEUE_CYCLES_PER_CALL = 500_000
+QUEUE_CYCLES_MIN = 4_000_000
+# timings in which the host had not queued every call when the stream woke
+HOST_PACED: list[str] = []
+
+
+def cuda_ms(fn, reps: int, warm: bool = True, queue_ahead: bool = True,
+            name: str = "") -> float:
     """Mean device time of ``fn`` over ``reps`` back-to-back calls, by CUDA
-    events, after one warm-up call unless ``warm`` is False."""
+    events, after one warm-up call unless ``warm`` is False. With
+    ``queue_ahead`` the stream first sleeps while the host queues the calls,
+    so that a kernel shorter than the host's launch interval is timed and
+    not the interval; a timing where the sleep ran out first is recorded in
+    HOST_PACED."""
     if warm:
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queue_ahead:
+        torch.cuda._sleep(max(QUEUE_CYCLES_MIN, QUEUE_CYCLES_PER_CALL * reps))
     start.record()
     for _ in range(reps):
         fn()
+    if queue_ahead and start.query():
+        HOST_PACED.append(name or getattr(fn, "__name__", "?"))
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -84,6 +102,22 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / CARD_BYTES_PER_S * 1e3
     t_ops = ops / CARD_F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def stream_bytes(rows: np.ndarray, window_len: int) -> int:
+    """Bytes of the sample stream that a fused tracker's rows [C, K, 128]
+    read: the union of every period's samples [position, position +
+    length) (lanes 17 and 10) inside the window, so that a sample several
+    channels read counts once."""
+    start = np.clip(rows[:, :, 17].astype(np.int64).ravel(), 0, window_len)
+    stop = np.clip(rows[:, :, 17].astype(np.int64).ravel()
+                   + rows[:, :, 10].astype(np.int64).ravel(), 0, window_len)
+    order = np.argsort(start, kind="stable")
+    start, stop = start[order], stop[order]
+    # what each range adds past the furthest end of the ranges before it
+    reach = np.maximum.accumulate(stop)
+    before = np.concatenate([start[:1], reach[:-1]])
+    return int(np.clip(stop - np.maximum(start, before), 0, None).sum()) * 8
 
 
 def synthetic_signal(tbl: np.ndarray, n: int, dops, delays, seed: int):
@@ -200,6 +234,77 @@ def assert_match(a, b, prompt_tol=5e-3, dop_tol=0.1) -> dict:
         if not diffs[k] < lim:
             raise AssertionError(f"engines disagree on {k}: {diffs[k]}")
     return diffs
+
+
+def fused_phase(dev, tbl, sig, dops, delays, C, kernels) -> None:
+    """Phase 4: K1 and K2 against their plain version at K = 20 and 1000,
+    C channels on the 8-satellite signal (channel c tracks satellite c % 8,
+    started 30 Hz + 5 Hz x (c // 8) off its Doppler); the K = 20 numbers go
+    into ``kernels`` unless it is None."""
+    from gnss_sdr_tpu_torch.ops import track_kernel as k2
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.ops.slots import LANES
+    from gnss_sdr_tpu_torch.receiver.plans import gps_l1ca_plan
+    from gnss_sdr_tpu_torch.tracking.fused import (
+        _pack_scalars,
+        build_fused_engine,
+    )
+    from gnss_sdr_tpu_torch.tracking.tracker import Tracker
+
+    window = torch.as_tensor(sig, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for K in (20, 1000):
+        plan = gps_l1ca_plan(FS, num_channels=C, steps_per_block=K)
+        conf = plan.trk_conf
+        trk = Tracker(conf, tbl, device=dev)
+        for ch in range(C):
+            s = ch % len(dops)
+            trk.start_channel(ch, prn=s + 1, code_row=s,
+                              acq_delay_samples=delays[s],
+                              acq_doppler_hz=dops[s] + 30.0 + 5.0 * (ch // 8),
+                              acq_samplestamp=0, current_abs_sample=0)
+        st = trk.state.replace(pos=torch.as_tensor(
+            trk.pos_abs.astype(np.int32), device=dev))
+        codes = torch.as_tensor(trk.codes, device=dev)
+        scal = _pack_scalars(conf, st)
+        spec = build_fused_engine(conf)
+        args = (window, codes, scal, st.pos, spec)
+        o_1 = k1.track_blocked(*args).cpu().numpy()
+        # R as launched, and as the first rule gives it before the occupancy
+        # query may halve it
+        cluster = dict(cluster_ctas=k1.track_blocked.cluster,
+                       cluster_rule=k1.cluster_shape(C, spec.n_max, sms)[0])
+        o_2 = k2.track_full(*args).cpu().numpy()
+        o_p = k1.track_blocked_plain(*args).cpu().numpy()
+        torch.cuda.synchronize()
+        plain_ms = cuda_ms(lambda: k1.track_blocked_plain(*args), 1,
+                           queue_ahead=False)
+        n_total = float(o_p[:, :, 10].sum())
+        fused_bytes = (stream_bytes(o_p, window.shape[0]) + codes.numel() * 4
+                       + scal.numel() * 4 + C * 4 + C * K * LANES * 4)
+        b_ms, b_by = bound(fused_bytes, n_total * FUSED_OPS_PER_SAMPLE)
+        out = torch.empty((C, K, LANES), dtype=torch.float32, device=dev)
+        reps = 50 if K == 20 else 5
+        for kname, o_k, launch in (("track_blocked", o_1, k1.launch),
+                                   ("track_full", o_2, k2.launch)):
+            rels = rows_rel_err(f"{kname} C={C}", o_p, o_k, K)
+            ms = cuda_ms(lambda: launch(*args, out), reps,
+                         name=f"{kname} C={C} K={K}")
+            res = dict(max_abs_err=float(np.abs(o_p[:, :, CHECK_LANES]
+                                                - o_k[:, :, CHECK_LANES]).max()),
+                       ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       msamples_per_s=n_total / (ms * 1e-3) / 1e6,
+                       us_per_period=ms * 1e3 / K)
+            if K == 20 and kernels is not None:
+                kernels[kname] = dict(res)
+            if kname == "track_full":
+                extra = {f"vs_k1_{k}": v for k, v in rows_rel_err(
+                    f"K2 against K1 C={C}", o_1, o_2, K).items()}
+            else:
+                extra = cluster
+            emit("k1_vs_plain" if kname == "track_blocked" else "k2_vs_plain",
+                 C=C, K=K, n_max=spec.n_max, L=1023, T=3,
+                 exact_lanes=EXACT_LANES, **rels, **extra, **res)
 
 
 def cli_phase(capture: np.ndarray, scen, tmp: Path) -> dict:
@@ -332,12 +437,14 @@ def k4_phase(dev, tbl, sig, dops, delays, kernels) -> None:
                 raise AssertionError("K4 did not advance the disabled channel")
             out = torch.empty((C, K, LANES), dtype=torch.float32, device=dev)
             ms = cuda_ms(lambda: tk.launch_simple(*args, out),
-                         50 if K == 20 else 5)
-            plain_ms = cuda_ms(lambda: tk.track_simple_plain(*args), 1)
+                         50 if K == 20 else 5, name=f"K4 {name} K={K}")
+            plain_ms = cuda_ms(lambda: tk.track_simple_plain(*args), 1,
+                               queue_ahead=False)
             n_total = float(o_p[:, :, 10].sum())
             b_ms, b_by = bound(
-                n_total * 8 + codes.numel() * 4 + scal.numel() * 4
-                + C * K * LANES * 4, n_total * fused_ops_per_sample(len(taps)))
+                stream_bytes(o_p, window.shape[0]) + codes.numel() * 4
+                + scal.numel() * 4 + C * K * LANES * 4,
+                n_total * fused_ops_per_sample(len(taps)))
             emit("k4_vs_plain", case=name, C=C, K=K, n_max=spec.n_max, L=L,
                  T=len(taps), order=order, exact_lanes=EXACT_LANES, **rels,
                  max_abs_err=float(np.abs(o_p[:, :, lanes]
@@ -406,19 +513,22 @@ def kbench_phase(dev, kernels) -> dict:
         o_k = kern(*args).cpu().numpy()
         o_p = plain(*args).cpu().numpy()
         rels = rows_rel_err(f"{name} at the kbench shape", o_p, o_k, K, lanes)
-        ms = cuda_ms(lambda: launch(*args, out), 5)
-        plain_ms = cuda_ms(lambda: plain(*args), 1)
+        ms = cuda_ms(lambda: launch(*args, out), 5, name=f"{name} kbench")
+        plain_ms = cuda_ms(lambda: plain(*args), 1, queue_ahead=False)
         n_total = float(o_p[:, :, 10].sum())
         b_ms, b_by = bound(
-            n_total * 8 + codes.numel() * 4 + scal.numel() * 4
-            + (C * 4 if name != "track_simple" else 0) + C * K * LANES * 4,
+            stream_bytes(o_p, window.shape[0]) + codes.numel() * 4
+            + scal.numel() * 4 + (C * 4 if name != "track_simple" else 0)
+            + C * K * LANES * 4,
             n_total * fused_ops_per_sample(spec.num_taps))
         shape[name] = dict(
             max_abs_err=float(np.abs(o_p[:, :, lanes]
                                      - o_k[:, :, lanes]).max()),
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             msamples_per_s=n_total / (ms * 1e-3) / 1e6,
-            us_per_ch_period=ms * 1e3 / (C * K))
+            us_per_ch_period=ms * 1e3 / (C * K), us_per_period=ms * 1e3 / K)
+        if name == "track_blocked":
+            shape[name]["cluster_ctas"] = k1.track_blocked.cluster
         emit("kbench_shape", kernel=name, C=C, K=K, n_max=spec.n_max,
              exact_lanes=EXACT_LANES, **rels, **shape[name])
     kernels["track_simple"] = dict(shape["track_simple"],
@@ -459,7 +569,8 @@ def probe_phase(dev, kernels) -> None:
 
     rows = []
     for v in p1.VARIANTS:
-        plain_ms = cuda_ms(lambda: p1.probe_plain(v, x, p1.K), 1, warm=False)
+        plain_ms = cuda_ms(lambda: p1.probe_plain(v, x, p1.K), 1, warm=False,
+                           queue_ahead=False)
         if v == "narrow":
             elems, nbytes = p1.C, p1.C * 4
         elif v == "out store":
@@ -505,10 +616,6 @@ def main() -> int:
     from gnss_sdr_tpu_torch.receiver.plans import gps_l1ca_plan
     from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
     from gnss_sdr_tpu_torch.simulate.scenario import GpsScenario, ScenarioConfig
-    from gnss_sdr_tpu_torch.tracking.fused import (
-        _pack_scalars,
-        build_fused_engine,
-    )
     from gnss_sdr_tpu_torch.tracking.tracker import Tracker
 
     t_start = time.perf_counter()
@@ -530,6 +637,13 @@ def main() -> int:
     _build.library()
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=_build.build_seconds)
+    # registers, stack frame and spills of K1 and K2 (ptxas -v)
+    res = {name: r for name, r in _build.kernel_resources(
+        _build.build_log).items()
+        if "track_blocked_kernel" in name or "track_full_kernel" in name}
+    if len(res) != 4:
+        raise AssertionError(f"build log names {len(res)} K1/K2 kernels")
+    emit("k1_k2_resources", kernels=res)
 
     tbl = gps_l1_ca_code_table().astype(np.float32)
     kernels = {}
@@ -558,9 +672,18 @@ def main() -> int:
     if not rel < 2e-3 or np.any(g[:, 6:] != 0):
         raise AssertionError(f"K3 disagrees with its plain version: {rel}")
     out = torch.empty_like(got)
-    ms = cuda_ms(lambda: k3.launch(x, cq, cq, sc, taps, out, code_len=L), 200)
+    # five runs of 200 launches queued ahead of the device (the median is
+    # the kernel's time), and five paced by the host for comparison: the
+    # host's launch interval is longer than K3
+    def k3_launch():
+        k3.launch(x, cq, cq, sc, taps, out, code_len=L)
+
+    k3_runs = [cuda_ms(k3_launch, 200, name="K3") for _ in range(5)]
+    k3_paced = [cuda_ms(k3_launch, 200, queue_ahead=False) for _ in range(5)]
+    ms = float(np.median(k3_runs))
     plain_ms = cuda_ms(
-        lambda: k3.correlator_plain(x, cq, cq, sc, taps, code_len=L), 20)
+        lambda: k3.correlator_plain(x, cq, cq, sc, taps, code_len=L), 20,
+        queue_ahead=False)
     # samples each channel reads (n_valid of N), tables, scalars, output
     k3_bytes = (C * n_valid * 8 + C * L * 4 + sc.numel() * 4
                 + C * LANES * 4)
@@ -569,57 +692,19 @@ def main() -> int:
         max_abs_err=float(np.abs(g - r).max()), ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by)
     emit("k3_vs_plain", C=C, N=npad, n_valid=n_valid, L=L, T=3,
-         rel_err=rel, tol=2e-3, **kernels["correlator"])
+         rel_err=rel, tol=2e-3, ms_runs=k3_runs, ms_host_paced_runs=k3_paced,
+         **kernels["correlator"])
 
     # ---- 4. K1 and K2 against their plain version, K = 20 and 1000 -------
-    # (K2's plain version is K1's: the two kernels compute the same rows)
+    # (K2's plain version is K1's: the two kernels compute the same rows);
+    # at the receiver's C = 8 (K1 in clusters of 8 CTAs) and at C = 132
+    # (K1 at one CTA a channel, one channel per SM)
     dops = [1200.0, -2500.0, 3400.0, -400.0, 150.0, -3900.0, 2600.0, -1700.0]
     delays = [37.0 + 311.0 * c for c in range(C)]
     sig = synthetic_signal(tbl, int(FS * 1.12), dops, delays, seed=1)
-    window = torch.as_tensor(sig, device=dev)
-    for K in (20, 1000):
-        plan = gps_l1ca_plan(FS, num_channels=C, steps_per_block=K)
-        conf = plan.trk_conf
-        trk = Tracker(conf, tbl, device=dev)
-        for ch in range(C):
-            trk.start_channel(ch, prn=ch + 1, code_row=ch,
-                              acq_delay_samples=delays[ch],
-                              acq_doppler_hz=dops[ch] + 30.0,
-                              acq_samplestamp=0, current_abs_sample=0)
-        st = trk.state.replace(pos=torch.as_tensor(
-            trk.pos_abs.astype(np.int32), device=dev))
-        codes = torch.as_tensor(trk.codes, device=dev)
-        scal = _pack_scalars(conf, st)
-        spec = build_fused_engine(conf)
-        args = (window, codes, scal, st.pos, spec)
-        o_1 = k1.track_blocked(*args).cpu().numpy()
-        o_2 = k2.track_full(*args).cpu().numpy()
-        o_p = k1.track_blocked_plain(*args).cpu().numpy()
-        torch.cuda.synchronize()
-        plain_ms = cuda_ms(lambda: k1.track_blocked_plain(*args), 1)
-        n_total = float(o_p[:, :, 10].sum())
-        fused_bytes = (n_total * 8 + codes.numel() * 4 + scal.numel() * 4
-                       + C * 4 + C * K * LANES * 4)
-        b_ms, b_by = bound(fused_bytes, n_total * FUSED_OPS_PER_SAMPLE)
-        out = torch.empty((C, K, LANES), dtype=torch.float32, device=dev)
-        reps = 50 if K == 20 else 5
-        for kname, o_k, launch in (("track_blocked", o_1, k1.launch),
-                                   ("track_full", o_2, k2.launch)):
-            rels = rows_rel_err(kname, o_p, o_k, K)
-            ms = cuda_ms(lambda: launch(*args, out), reps)
-            res = dict(max_abs_err=float(np.abs(o_p[:, :, CHECK_LANES]
-                                                - o_k[:, :, CHECK_LANES]).max()),
-                       ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                       msamples_per_s=n_total / (ms * 1e-3) / 1e6)
-            if K == 20:
-                kernels[kname] = dict(res)
-            extra = {}
-            if kname == "track_full":
-                extra = {f"vs_k1_{k}": v for k, v in rows_rel_err(
-                    "K2 against K1", o_1, o_2, K).items()}
-            emit("k1_vs_plain" if kname == "track_blocked" else "k2_vs_plain",
-                 C=C, K=K, n_max=spec.n_max, L=L, T=3,
-                 exact_lanes=EXACT_LANES, **rels, **extra, **res)
+    for n_ch in (C, 132):
+        fused_phase(dev, tbl, sig, dops, delays, n_ch,
+                    kernels if n_ch == C else None)
 
     # ---- 5. the three engines over the same blocks -----------------------
     # eager (K3 per period), fused through K1, fused through K2
@@ -754,7 +839,8 @@ def main() -> int:
                  else {})}
              for n in ("track_blocked", "track_full", "correlator",
                        "track_simple", "probe")]
-    emit("done", seconds=time.perf_counter() - t_start)
+    emit("done", seconds=time.perf_counter() - t_start,
+         host_paced_timings=HOST_PACED)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,44 +1,45 @@
 // Per-channel fused K-period GPS tracker (K2): closed-loop DLL/PLL/FLL
-// tracking of C channels over K code periods in one launch, one warp per
-// channel.
+// tracking of C channels over K code periods in one launch, one CTA per
+// channel fed by a shared-memory sample ring.
 //
 // Replaces the TPU kernel gnss_sdr_tpu/ops/track_kernel.py,
 // make_fused_tracker_full (pallas_call at :937), which runs one grid
 // program per channel. It computes what that kernel computes (:565-904)
 // for the GPS modes, with the same scalar slots and output lanes
 // (ops/slots.py), and what K1 (csrc/track_blocked.cu) computes on the same
-// inputs: the two kernels share the per-sample step and the per-channel
-// section (csrc/track_loop.cuh) and differ only in how the loop is mapped
-// onto the card. No qloop/window2 replica, no [rows, 128] sample layout,
-// no Cephes atan or Cody-Waite sincos: sincosf, atanf and atan2f.
+// inputs: the two kernels share the per-sample step, the sample ring and
+// the per-channel section (csrc/track_loop.cuh) and differ only in how a
+// channel is spread over the card. No qloop/window2 replica, no [rows, 128]
+// sample layout, no Cephes atan or Cody-Waite sincos.
 //
-// What bounds it on the H100: latency, as for K1. The loop is sequential
-// over periods, and one period of one channel is ~2600 samples; the bytes
-// (C*K*n*8 B of stream) would take well under a microsecond per period at
-// 3.35 TB/s.
+// What bounds it on the H100: latency. The loop is sequential over periods
+// (period i+1's NCO needs period i's correlations); one period of one
+// channel is ~2600 samples, whose bytes (8 B each) would take well under a
+// microsecond at 3.35 TB/s. A period costs the dependent sample loads, the
+// per-sample arithmetic spread over the CTA, one barrier and the serial
+// closure (atanf, atan2f, two sqrtf, divisions).
 //
-// What the design does about it: one warp carries one channel through all
-// K periods, several warps (channels) to a CTA. Each lane strides over the
-// period's samples (about 82 a lane at 2602; coalesced float2 reads of the
-// complex64 stream at pos + k) and keeps the 2T tap partial sums in
-// registers. A __shfl_xor_sync butterfly leaves the same sums in every
-// lane (each step adds the same two values in either order, so all lanes
-// agree bit for bit), and every lane runs the loop closure redundantly:
-// the period loop has no block barrier and no one-thread section, only
-// __syncwarp around the row store. The channel's code row is staged once
-// into shared memory (4 KB a warp at 1023 chips); the 128-float output row
-// is assembled in shared memory and stored as one float4 a lane. Against
-// K1 (256 threads a channel, two barriers and a one-thread closure a
-// period) it trades 8x fewer threads per channel for no barriers. Built
-// with -fmad=false like K1, so the period lengths and positions agree
-// exactly with the plain version.
+// What the design does about it: grid C, one CTA of 8 consumer warps and
+// 1 producer warp per channel, resident for all K periods. The producer
+// warp stages each period's n_max samples into a two-slot ring in shared
+// memory with cp.async.bulk completing on an mbarrier, one period ahead:
+// the next period starts at pos + n (or pos for a disabled channel), known
+// when the current one starts. The consumer warps wait on the slot's
+// barrier, run the cheaper per-sample step (comparison code wrap, the
+// reciprocal code step, reduced-range __sincosf, FMA contraction) from
+// shared memory, and reduce with shuffles into a partial slot chosen by the
+// period's parity. One CTA barrier a period; after it every thread adds the
+// partials in the same fixed order and runs close_loop and period_geometry
+// itself, so all threads hold bit-identical state and no second barrier is
+// needed. One warp stores the 128-float row as float4s. The channel's code
+// table stays in shared memory (4 KB at 1023 chips, 40 KB at 10230).
 
 #include "track_loop.cuh"
 
 namespace {
 
-constexpr int WARPS = 4;                  // channels per CTA
-constexpr int THREADS = WARPS * 32;
+constexpr int NCW = 8;                    // consumer warps
+constexpr int THREADS = (NCW + 1) * 32;   // + the producer warp
 
 template <int T, bool INTERP>
 __global__ void __launch_bounds__(THREADS)
@@ -46,62 +47,86 @@ track_full_kernel(const float2* __restrict__ window,
                   const float* __restrict__ codes,
                   const float* __restrict__ scalars,
                   const int* __restrict__ pos_in,
-                  float* __restrict__ out, const Params P, int n_channels) {
-  // [WARPS][LANES] output rows, then [WARPS][code_len] code rows
+                  float* __restrict__ out, const Params P,
+                  const RingShape R) {
+  // [2][slotw] ring slots, then [code_len] code table
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c = blockIdx.x * WARPS + warp;
-  if (c >= n_channels) return;            // whole warp; no block barrier
-  float* s_row = smem + warp * LANES;
-  float* s_code = smem + WARPS * LANES + warp * P.code_len;
+  float2* ring = reinterpret_cast<float2*>(smem4);
+  float* s_code = reinterpret_cast<float*>(ring + 2 * R.slotw);
+  __shared__ uint64_t full[2], empty[2];
+  __shared__ float s_part[2][NCW][2 * T];
+  __shared__ __align__(16) float s_row[LANES];
 
-  for (int i = lane; i < P.code_len; i += 32)
+  const int c = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+
+  for (int i = tid; i < P.code_len; i += THREADS)
     s_code[i] = codes[(size_t)c * P.code_len + i];
-  for (int i = lane; i < LANES; i += 32) s_row[i] = 0.0f;
-  __syncwarp();
+  for (int i = tid; i < LANES; i += THREADS) s_row[i] = 0.0f;
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], NCW);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
   State<T> st;
   load_state<T>(st, scalars + (size_t)c * P.ns, pos_in[c], P);
   period_geometry(st, P);
+  const bool en = st.en > 0.5f;
 
   float offs[T];
 #pragma unroll
   for (int t = 0; t < T; ++t) offs[t] = P.offs[t];
 
+  int g_next = 0;
   for (int it = 0; it < P.n_periods; ++it) {
-    const int pos = st.pos, n = (int)st.n;
-    const float dstep = (TWO_PI * P.inv_fs) * st.dop;
-    float acc_re[T], acc_im[T];
+    const Geo g = geo_of(st, P);
+    const int len = min(g.n, R.width);
+    if (warp == NCW) {
+      g_next = ring_produce_period(window, P.window_len, ring, full, empty,
+                                   R, g_next, it, P.n_periods, 0, g.pos,
+                                   en ? g.pos + g.n : g.pos, lane);
+    } else {
+      float acc_re[T], acc_im[T];
 #pragma unroll
-    for (int t = 0; t < T; ++t) acc_re[t] = acc_im[t] = 0.0f;
+      for (int t = 0; t < T; ++t) acc_re[t] = acc_im[t] = 0.0f;
+      ring_consume_period<T, INTERP>(window, ring, full, empty, R, s_code,
+                                     P.code_len, offs, g, it, 0, len, tid,
+                                     NCW * 32, lane, acc_re, acc_im);
+#pragma unroll
+      for (int t = 0; t < T; ++t) {
+        for (int o = 16; o > 0; o >>= 1) {
+          acc_re[t] += __shfl_down_sync(0xffffffffu, acc_re[t], o);
+          acc_im[t] += __shfl_down_sync(0xffffffffu, acc_im[t], o);
+        }
+        if (lane == 0) {
+          s_part[it & 1][warp][2 * t] = acc_re[t];
+          s_part[it & 1][warp][2 * t + 1] = acc_im[t];
+        }
+      }
+    }
+    __syncthreads();
 
-    // one warp has no other warps to hide its latency behind: unrolled,
-    // four samples' loads, sincosf and divisions are in flight at once
-    // (each lane still adds its samples in k order)
-#pragma unroll 4
-    for (int k = lane; k < n; k += 32)
-      accumulate_sample<T, INTERP>(window, s_code, P, offs, pos, k, st.rem,
-                                   st.code_step, st.phase, dstep, acc_re,
-                                   acc_im);
+    // every thread: the same sums in the same order, the same closure
     float taps[2 * T];
 #pragma unroll
-    for (int t = 0; t < T; ++t) {
-      for (int o = 16; o > 0; o >>= 1) {
-        acc_re[t] += __shfl_xor_sync(0xffffffffu, acc_re[t], o);
-        acc_im[t] += __shfl_xor_sync(0xffffffffu, acc_im[t], o);
-      }
-      taps[2 * t] = acc_re[t];
-      taps[2 * t + 1] = acc_im[t];
+    for (int j = 0; j < 2 * T; ++j) {
+      float v = 0.0f;
+      for (int w = 0; w < NCW; ++w) v += s_part[it & 1][w][j];
+      taps[j] = v;
     }
-
-    // every lane holds the same state and writes the same row values
-    close_loop<T>(st, P, taps, s_row);
+    close_loop<T>(st, P, taps, tid == 0 ? s_row : nullptr);
     period_geometry(st, P);
-    __syncwarp();
-    reinterpret_cast<float4*>(out + ((size_t)c * P.n_periods + it) * LANES)
-        [lane] = reinterpret_cast<const float4*>(s_row)[lane];
-    __syncwarp();
+    if (warp == 0) {
+      __syncwarp();
+      reinterpret_cast<float4*>(out + ((size_t)c * P.n_periods + it) * LANES)
+          [lane] = reinterpret_cast<const float4*>(s_row)[lane];
+      __syncwarp();
+    }
   }
 }
 
@@ -109,23 +134,25 @@ template <int T, bool INTERP>
 cudaError_t launch(const float2* window, const float* codes,
                    const float* scalars, const int* pos, float* out, int c,
                    const Params& P, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)WARPS * (LANES + P.code_len) * sizeof(float);
+  const RingShape R = ring_shape(
+      (P.n_max + COPY_ALIGN - 1) / COPY_ALIGN * COPY_ALIGN);
+  const size_t smem = (size_t)2 * R.slotw * sizeof(float2)
+                      + (size_t)P.code_len * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         track_full_kernel<T, INTERP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const int blocks = (c + WARPS - 1) / WARPS;
-  track_full_kernel<T, INTERP><<<blocks, THREADS, smem, stream>>>(
-      window, codes, scalars, pos, out, P, c);
+  track_full_kernel<T, INTERP><<<c, THREADS, smem, stream>>>(
+      window, codes, scalars, pos, out, P, R);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// The arguments are gnss_track_blocked's (csrc/track_blocked.cu).
+// The arguments are gnss_track_blocked's (csrc/track_blocked.cu) without
+// the cluster size and slice width.
 extern "C" int gnss_track_full(const void* window, int window_len,
                                const void* codes, int code_len,
                                const void* scalars, int ns, const void* pos,

@@ -1,15 +1,25 @@
 // The per-period loop of the fused GPS trackers, shared by the two CUDA
-// mappings of it: csrc/track_blocked.cu (K1, one CTA per channel) and
-// csrc/track_full.cu (K2, one warp per channel). The simple tracker K4
-// (csrc/track_simple.cu) takes the period geometry and the per-sample step
-// from here and has its own loop closure.
+// mappings of it: csrc/track_blocked.cu (K1, a thread-block cluster per
+// channel) and csrc/track_full.cu (K2, one CTA per channel). The simple
+// tracker K4 (csrc/track_simple.cu) takes the period geometry and the
+// per-sample step accumulate_sample from here and has its own loop closure.
 //
 // Scalar input slots and output lanes are those of ops/slots.py. The
-// loop-closure section is float32 exactly as the plain version
-// (ops/track_kernel_blocked.py::track_blocked_plain) writes it; the files
-// that include this header build with -fmad=false so that the period-length
-// rule (round, then correct a negative remnant) rounds as written and the
-// period lengths and positions agree exactly with the plain version.
+// period geometry and the loop closure are float32 exactly as the plain
+// version (ops/track_kernel_blocked.py::track_blocked_plain) writes them:
+// every sum that could contract with a product into an FMA is written with
+// __fadd_rn/__fsub_rn/__fmul_rn, which nvcc never contracts, so the
+// period-length rule (round, then correct a negative remnant) rounds as
+// written under any -fmad setting and the period lengths and positions
+// agree exactly with the plain version. K1 and K2 therefore build with FMA
+// contraction on; K4, whose per-sample step is accumulate_sample, still
+// builds with -fmad=false.
+//
+// K1 and K2 take their samples from a two-slot ring in shared memory
+// (ring_produce_period / ring_consume_period below): one producer warp
+// stages each period's samples with cp.async.bulk (TMA's 1-D bulk copy)
+// completing on an mbarrier, one period ahead of the consumer warps, which
+// run the cheaper per-sample step accumulate_staged on what has arrived.
 
 #pragma once
 
@@ -107,13 +117,15 @@ struct State {
 // K4's SimpleState in csrc/track_simple.cu)
 template <class S>
 __device__ void period_geometry(S& s, const Params& P) {
-  s.delta = s.dcode * P.inv_fs;
-  s.code_step = P.nominal_step + s.delta;
-  const float small = s.rem + P.c0 + P.spcf * s.delta;
-  const float n_f = P.spcf - small / s.code_step;
-  const float n0 = floorf(n_f + 0.5f);
-  const float rem0 = s.rem + ((n0 - P.spcf) * s.code_step + P.c0
-                              + P.spcf * s.delta);
+  s.delta = __fmul_rn(s.dcode, P.inv_fs);
+  s.code_step = __fadd_rn(P.nominal_step, s.delta);
+  const float spcd = __fmul_rn(P.spcf, s.delta);
+  const float small = __fadd_rn(__fadd_rn(s.rem, P.c0), spcd);
+  const float n_f = __fsub_rn(P.spcf, __fdiv_rn(small, s.code_step));
+  const float n0 = floorf(__fadd_rn(n_f, 0.5f));
+  const float rem0 = __fadd_rn(
+      s.rem, __fadd_rn(__fadd_rn(__fmul_rn(__fsub_rn(n0, P.spcf),
+                                           s.code_step), P.c0), spcd));
   const float addf = rem0 < 0.0f ? 1.0f : 0.0f;
   s.n = fminf(fmaxf(n0 + addf, 1.0f), (float)P.n_max);
 }
@@ -123,7 +135,8 @@ __device__ __forceinline__ float nz(float x) {
 }
 
 // accumulation, discriminators, loop filters and NCO advance for one
-// period (the per-channel section); fills the output row
+// period (the per-channel section); fills the output row unless row is
+// null (every thread of a CTA may run it; one writes the row)
 template <int T>
 __device__ void close_loop(State<T>& s, const Params& P, const float* taps,
                            float* row) {
@@ -149,21 +162,25 @@ __device__ void close_loop(State<T>& s, const Params& P, const float* taps,
   const float costas = atanf(p_im / nz(p_re));
   const float carr_err =
       (s.atan2_flag > 0.5f ? atan2f(p_im, p_re) : costas) / TWO_PI;
-  const float cross = s.prev_re * p_im - s.prev_im * p_re;
-  const float dot = s.prev_re * p_re + s.prev_im * p_im;
+  const float cross = __fsub_rn(__fmul_rn(s.prev_re, p_im),
+                                __fmul_rn(s.prev_im, p_re));
+  const float dot = __fadd_rn(__fmul_rn(s.prev_re, p_re),
+                              __fmul_rn(s.prev_im, p_im));
   const float freq_err =
       atanf(cross / nz(dot)) / (TWO_PI * fmaxf(t_int, 1e-20f));
   const float e_re = s.acc[2 * (p - 1)], e_im = s.acc[2 * (p - 1) + 1];
   const float l_re = s.acc[2 * (p + 1)], l_im = s.acc[2 * (p + 1) + 1];
-  const float e_mag = sqrtf(e_re * e_re + e_im * e_im);
-  const float l_mag = sqrtf(l_re * l_re + l_im * l_im);
+  const float e_mag = sqrtf(__fadd_rn(__fmul_rn(e_re, e_re),
+                                     __fmul_rn(e_im, e_im)));
+  const float l_mag = sqrtf(__fadd_rn(__fmul_rn(l_re, l_re),
+                                     __fmul_rn(l_im, l_im)));
   const float code_err =
       0.5f * (e_mag - l_mag) / fmaxf(e_mag + l_mag, 1e-20f);
 
   // loop filters (boundary-gated)
   const float fll_add =
       (boundary && s.fll > 0.5f) ? P.w0f * P.w0f * freq_err * t_int : 0.0f;
-  const float pll_i1_a = s.pll_i1 + fll_add;
+  const float pll_i1_a = __fadd_rn(s.pll_i1, fll_add);
   const float w0p = s.w0p, w0d = s.w0d;
   float pll_i1_u, pll_i2_u, pll_out;
   if (P.pll_order == 1) {
@@ -171,13 +188,15 @@ __device__ void close_loop(State<T>& s, const Params& P, const float* taps,
     pll_i2_u = s.pll_i2;
     pll_out = 4.0f * s.pll_bw * carr_err;
   } else if (P.pll_order == 2) {
-    pll_i1_u = pll_i1_a + w0p * w0p * carr_err * t_int;
+    pll_i1_u = __fadd_rn(pll_i1_a, w0p * w0p * carr_err * t_int);
     pll_i2_u = s.pll_i2;
-    pll_out = pll_i1_u + 1.414f * w0p * carr_err;
+    pll_out = __fadd_rn(pll_i1_u, 1.414f * w0p * carr_err);
   } else {
-    pll_i2_u = s.pll_i2 + (w0p * w0p * w0p) * carr_err * t_int;
-    pll_i1_u = pll_i1_a + t_int * (pll_i2_u + 1.1f * w0p * w0p * carr_err);
-    pll_out = pll_i1_u + 2.4f * w0p * carr_err;
+    pll_i2_u = __fadd_rn(s.pll_i2, (w0p * w0p * w0p) * carr_err * t_int);
+    pll_i1_u = __fadd_rn(
+        pll_i1_a,
+        t_int * __fadd_rn(pll_i2_u, 1.1f * w0p * w0p * carr_err));
+    pll_out = __fadd_rn(pll_i1_u, 2.4f * w0p * carr_err);
   }
   float dll_i1_u, dll_i2_u, dll_out;
   if (P.dll_order == 1) {
@@ -185,13 +204,15 @@ __device__ void close_loop(State<T>& s, const Params& P, const float* taps,
     dll_i2_u = s.dll_i2;
     dll_out = 4.0f * s.dll_bw * code_err;
   } else if (P.dll_order == 2) {
-    dll_i1_u = s.dll_i1 + w0d * w0d * code_err * t_int;
+    dll_i1_u = __fadd_rn(s.dll_i1, w0d * w0d * code_err * t_int);
     dll_i2_u = s.dll_i2;
-    dll_out = dll_i1_u + 1.414f * w0d * code_err;
+    dll_out = __fadd_rn(dll_i1_u, 1.414f * w0d * code_err);
   } else {
-    dll_i2_u = s.dll_i2 + (w0d * w0d * w0d) * code_err * t_int;
-    dll_i1_u = s.dll_i1 + t_int * (dll_i2_u + 1.1f * w0d * w0d * code_err);
-    dll_out = dll_i1_u + 2.4f * w0d * code_err;
+    dll_i2_u = __fadd_rn(s.dll_i2, (w0d * w0d * w0d) * code_err * t_int);
+    dll_i1_u = __fadd_rn(
+        s.dll_i1,
+        t_int * __fadd_rn(dll_i2_u, 1.1f * w0d * w0d * code_err));
+    dll_out = __fadd_rn(dll_i1_u, 2.4f * w0d * code_err);
   }
   const float pll_i1_n = boundary ? pll_i1_u : s.pll_i1;
   const float pll_i2_n = boundary ? pll_i2_u : s.pll_i2;
@@ -199,14 +220,19 @@ __device__ void close_loop(State<T>& s, const Params& P, const float* taps,
   const float dll_i2_n = boundary ? dll_i2_u : s.dll_i2;
   const float doppler_new = boundary ? pll_out : s.dop;
   const float dcode_new =
-      boundary ? doppler_new * P.aid_ratio - dll_out : s.dcode;
+      boundary ? __fsub_rn(__fmul_rn(doppler_new, P.aid_ratio), dll_out)
+               : s.dcode;
 
   // NCO advance over the consumed period, at the Doppler in force during it
   const float dphi = (TWO_PI * P.inv_fs) * s.dop * s.n;
-  float phase_adv = s.phase + dphi;
-  phase_adv = phase_adv - TWO_PI * floorf(phase_adv / TWO_PI);
+  float phase_adv = __fadd_rn(s.phase, dphi);
+  phase_adv = __fsub_rn(phase_adv,
+                        __fmul_rn(TWO_PI, floorf(phase_adv / TWO_PI)));
   const float rem_adv = fmaxf(
-      s.rem + ((s.n - P.spcf) * s.code_step + P.c0 + P.spcf * s.delta), 0.0f);
+      __fadd_rn(s.rem,
+                __fadd_rn(__fadd_rn(__fmul_rn(__fsub_rn(s.n, P.spcf),
+                                              s.code_step), P.c0),
+                          __fmul_rn(P.spcf, s.delta))), 0.0f);
   const int pos_new = eng ? s.pos + (int)s.n : s.pos;
   const float rem_new = eng ? rem_adv : s.rem;
   const float phase_new = eng ? phase_adv : s.phase;
@@ -216,30 +242,32 @@ __device__ void close_loop(State<T>& s, const Params& P, const float* taps,
   const float prev_im_n = boundary ? p_im : s.prev_im;
   const float icount_out = boundary ? 0.0f : icount_new;
 
-  for (int j = 0; j < 2 * T; ++j) {
-    row[j] = taps[j];
-    row[LANE_ACC0 + j] = s.acc[j];
+  if (row != nullptr) {
+    for (int j = 0; j < 2 * T; ++j) {
+      row[j] = taps[j];
+      row[LANE_ACC0 + j] = s.acc[j];
+    }
+    row[LANE_N] = s.n;
+    row[LANE_DOPPLER] = dop_out;
+    row[LANE_DCODE] = dcode_out;
+    row[LANE_REM] = rem_new;
+    row[LANE_PHASE] = phase_new;
+    row[LANE_PLL_I1] = pll_i1_n;
+    row[LANE_DLL_I1] = dll_i1_n;
+    row[LANE_POS] = (float)pos_new;
+    row[LANE_PLL_I2] = pll_i2_n;
+    row[LANE_DLL_I2] = dll_i2_n;
+    row[LANE_BOUND] = bf;
+    row[LANE_ACC_N] = acc_n_new;
+    row[LANE_DATA_RE] = accd_re_new;
+    row[LANE_DATA_IM] = accd_im_new;
+    row[LANE_DATA_BOUND] = dbf;
+    row[LANE_DATA_CNT] = accd_cnt_new;
+    row[LANE_SEC_IDX] = sec_next;
+    row[LANE_ICOUNT] = icount_out;
+    row[LANE_PREV_RE] = prev_re_n;
+    row[LANE_PREV_IM] = prev_im_n;
   }
-  row[LANE_N] = s.n;
-  row[LANE_DOPPLER] = dop_out;
-  row[LANE_DCODE] = dcode_out;
-  row[LANE_REM] = rem_new;
-  row[LANE_PHASE] = phase_new;
-  row[LANE_PLL_I1] = pll_i1_n;
-  row[LANE_DLL_I1] = dll_i1_n;
-  row[LANE_POS] = (float)pos_new;
-  row[LANE_PLL_I2] = pll_i2_n;
-  row[LANE_DLL_I2] = dll_i2_n;
-  row[LANE_BOUND] = bf;
-  row[LANE_ACC_N] = acc_n_new;
-  row[LANE_DATA_RE] = accd_re_new;
-  row[LANE_DATA_IM] = accd_im_new;
-  row[LANE_DATA_BOUND] = dbf;
-  row[LANE_DATA_CNT] = accd_cnt_new;
-  row[LANE_SEC_IDX] = sec_next;
-  row[LANE_ICOUNT] = icount_out;
-  row[LANE_PREV_RE] = prev_re_n;
-  row[LANE_PREV_IM] = prev_im_n;
 
   // carry into the next period
   for (int j = 0; j < 2 * T; ++j) s.acc[j] = boundary ? 0.0f : s.acc[j];
@@ -336,6 +364,260 @@ __device__ __forceinline__ void accumulate_sample(
     const float v = replica<INTERP>(code, P.code_len, cph + offs[t], step);
     acc_re[t] += wr * v;
     acc_im[t] += wi * v;
+  }
+}
+
+// ---- the staged per-sample step (K1 and K2) ----------------------------
+
+// The code index of a tap phase: the tap phases of one period lie within a
+// few chips of [0, code_len), so one conditional add or subtract gives what
+// % gives; % is kept for an index outside [-code_len, 2 code_len)
+// (ops/track_kernel_blocked.py::wrap_code_index is the same rule).
+__device__ __forceinline__ int wrap_index(int m, int code_len) {
+  int r = m < 0 ? m + code_len : (m >= code_len ? m - code_len : m);
+  if ((unsigned)r >= (unsigned)code_len) {
+    r = m % code_len;
+    if (r < 0) r += code_len;
+  }
+  return r;
+}
+
+// sin and cos of a carrier phase of at most a few hundred radians: reduce
+// to [-pi, pi] with 2 pi split in two floats (each product exact in the
+// fma), then the hardware's __sincosf, accurate to ~4e-7 there. Replaces
+// sincosf, whose slow-path argument reduction (a loop over the 2/pi table,
+// through the stack in K2) sat in the sample loop.
+__device__ __forceinline__ void sincos_reduced(float ph, float* s, float* c) {
+  const float m = rintf(ph * 0.159154943f);          // ph / (2 pi)
+  float r = fmaf(-m, 6.28318548f, ph);               // float32(2 pi)
+  r = fmaf(-m, -1.74845553e-7f, r);                  // 2 pi - float32(2 pi)
+  __sincosf(r, s, c);
+}
+
+// soft replica with the reciprocal code step (inv_step = 1 / step, once a
+// period) and the comparison wrap
+template <bool INTERP>
+__device__ __forceinline__ float replica_staged(const float* code,
+                                                int code_len, float tap_ph,
+                                                float inv_step) {
+  if (INTERP) {
+    const float fl = floorf(tap_ph + 0.5f);
+    const int m = wrap_index((int)fl, code_len);
+    const int mp = m == 0 ? code_len - 1 : m - 1;
+    const float cur = code[m];
+    const float prev = code[mp];
+    const float w = fminf(fmaxf((tap_ph - fl) * inv_step + 0.5f, 0.0f), 1.0f);
+    return prev + (cur - prev) * w;
+  }
+  return code[wrap_index((int)floorf(tap_ph), code_len)];
+}
+
+// the geometry of one period, as every thread of a CTA uses it
+struct Geo {
+  int pos, n;
+  float rem, step, inv_step, ph0, dstep;
+};
+
+template <int T>
+__device__ __forceinline__ Geo geo_of(const State<T>& s, const Params& P) {
+  Geo g;
+  g.pos = s.pos;
+  g.n = (int)s.n;
+  g.rem = s.rem;
+  g.step = s.code_step;
+  g.inv_step = __frcp_rn(s.code_step);
+  g.ph0 = s.phase;
+  g.dstep = (TWO_PI * P.inv_fs) * s.dop;
+  return g;
+}
+
+// sample k of the period (already in registers): what accumulate_sample
+// adds, with sincos_reduced, replica_staged, and contraction allowed in
+// the wipeoff and the tap products; the two phase ramps stay single-rounded
+// fmaf as the plain version rounds them
+template <int T, bool INTERP>
+__device__ __forceinline__ void accumulate_staged(
+    float2 x, const float* code, int code_len, const float* offs, float kf,
+    const Geo& g, float* acc_re, float* acc_im) {
+  float sw, cw;
+  sincos_reduced(fmaf(g.dstep, kf, g.ph0), &sw, &cw);
+  const float wr = x.x * cw + x.y * sw;
+  const float wi = x.y * cw - x.x * sw;
+  const float cph = fmaf(g.step, kf, g.rem);
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    const float v = replica_staged<INTERP>(code, code_len, cph + offs[t],
+                                           g.inv_step);
+    acc_re[t] += wr * v;
+    acc_im[t] += wi * v;
+  }
+}
+
+// ---- the shared-memory sample ring (K1 and K2) --------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n\t.reg .b64 state;\n\t"
+               "mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("{\n\t.reg .b64 state;\n\t"
+               "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n\t}"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile("{\n\t.reg .pred p;\n\t"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+                 "selp.u32 %0, 1, 0, p;\n\t}"
+                 : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// 1-D bulk copy (TMA) of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device memory into this CTA's shared memory, completing
+// on the mbarrier's transaction count
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// How a CTA walks its slice of every period: the slice [lo, lo + width) of
+// the period's samples (K2: lo = 0 and width = n_max rounded up to the copy
+// alignment; K1: CTA r of R takes lo = r * width), cut into nch chunks of
+// `chunk` samples, each staged into one of two ring slots of slotw =
+// chunk + 2 samples (one more on each side for the 16-byte alignment).
+// Chunk g of the stream (period g / nch) goes to slot g % 2.
+struct RingShape {
+  int width, chunk, nch, slotw;
+};
+
+constexpr int RING_CHUNK_MAX = 8192;   // samples a slot holds (64 KB)
+constexpr int COPY_ALIGN = 2;          // samples: 16 bytes of float2
+
+__host__ __device__ inline RingShape ring_shape(int width) {
+  RingShape r;
+  r.width = width;
+  r.nch = (width + RING_CHUNK_MAX - 1) / RING_CHUNK_MAX;
+  if (r.nch < 1) r.nch = 1;
+  r.chunk = (width + r.nch - 1) / r.nch;
+  r.chunk = (r.chunk + COPY_ALIGN - 1) / COPY_ALIGN * COPY_ALIGN;
+  r.slotw = r.chunk + COPY_ALIGN;
+  return r;
+}
+
+// 1 when window[idx] is 16-byte aligned for odd idx (the stream starts 8
+// bytes past a 16-byte boundary), else 0
+__device__ __forceinline__ int odd_alignment(const float2* window) {
+  return (int)((reinterpret_cast<uintptr_t>(window) >> 3) & 1);
+}
+
+// Producer warp: stage chunk g, whose first sample is window[start], into
+// its slot. The slot holds window[g0 .. g0 + slotw) with g0 = start rounded
+// down to 16 bytes. The 16-byte-aligned part inside the window comes by one
+// bulk copy; the lanes store the rest (the aligned edges, and zeros outside
+// the window, as accumulate_sample reads them). The slot's full barrier
+// expects 32 arrivals (one a lane) and the copy's bytes. Before reusing a
+// slot the warp waits until the consumer warps have released it.
+__device__ __forceinline__ void ring_produce(
+    const float2* __restrict__ window, int window_len, float2* ring,
+    uint64_t* full, uint64_t* empty, const RingShape& R, int g, int start,
+    int lane) {
+  const int s = g & 1;
+  if (g >= 2) mbar_wait(&empty[s], ((g >> 1) - 1) & 1);
+  const int a0 = odd_alignment(window);
+  const int g0 = start - ((start + a0) & 1);
+  int lo = max(g0, 0);
+  lo += (lo + a0) & 1;
+  int hi = min(g0 + R.slotw, window_len);
+  hi -= (hi + a0) & 1;
+  if (hi < lo) hi = lo;
+  float2* dst = ring + s * R.slotw;
+  const int front = min(lo - g0, R.slotw);
+  const int back = max(min(hi - g0, R.slotw), front);
+  for (int e = lane; e < front; e += 32) {
+    const int idx = g0 + e;
+    dst[e] = (idx >= 0 && idx < window_len) ? window[idx]
+                                            : make_float2(0.0f, 0.0f);
+  }
+  for (int e = back + lane; e < R.slotw; e += 32) {
+    const int idx = g0 + e;
+    dst[e] = (idx >= 0 && idx < window_len) ? window[idx]
+                                            : make_float2(0.0f, 0.0f);
+  }
+  if (lane == 0) {
+    const uint32_t bytes = (uint32_t)(hi - lo) * (uint32_t)sizeof(float2);
+    mbar_arrive_tx(&full[s], bytes);
+    if (bytes) bulk_load(dst + (lo - g0), window + lo, bytes, &full[s]);
+  } else {
+    mbar_arrive(&full[s]);
+  }
+}
+
+// Producer warp, once a period `it` whose geometry it holds: stage every
+// chunk it may without waiting on a slot that only the next period frees,
+// so that it reaches the period's barrier: the rest of period it, then the
+// first chunks (up to two) of period it + 1, which starts at pos_next
+// (pos + n, or pos for a disabled channel). Returns the next chunk index.
+__device__ __forceinline__ int ring_produce_period(
+    const float2* __restrict__ window, int window_len, float2* ring,
+    uint64_t* full, uint64_t* empty, const RingShape& R, int g_next, int it,
+    int n_periods, int lo, int pos, int pos_next, int lane) {
+  const int limit = min((it + 1) * R.nch + min(R.nch, 2), n_periods * R.nch);
+  for (; g_next < limit; ++g_next) {
+    const int p = g_next / R.nch;
+    const int c = g_next - p * R.nch;
+    ring_produce(window, window_len, ring, full, empty, R, g_next,
+                 (p == it ? pos : pos_next) + lo + c * R.chunk, lane);
+  }
+  return g_next;
+}
+
+// Consumer warps, once a period: each thread (ctid of nct) adds its samples
+// of this CTA's slice [lo, lo + len) of period `it` (geometry g) to its 2T
+// tap partials, chunk by chunk as the slots fill; each warp releases a slot
+// when it is done with it.
+template <int T, bool INTERP>
+__device__ __forceinline__ void ring_consume_period(
+    const float2* __restrict__ window, const float2* ring, uint64_t* full,
+    uint64_t* empty, const RingShape& R, const float* code, int code_len,
+    const float* offs, const Geo& g, int it, int lo, int len, int ctid,
+    int nct, int lane, float* acc_re, float* acc_im) {
+  const int a0 = odd_alignment(window);
+  for (int c = 0; c < R.nch; ++c) {
+    const int gi = it * R.nch + c;
+    const int s = gi & 1;
+    const int start = g.pos + lo + c * R.chunk;
+    const float2* src = ring + s * R.slotw + ((start + a0) & 1);
+    const int j0 = c * R.chunk;
+    const int j1 = min(len, j0 + R.chunk);
+    mbar_wait(&full[s], (gi >> 1) & 1);
+    for (int j = j0 + ctid; j < j1; j += nct)
+      accumulate_staged<T, INTERP>(src[j - j0], code, code_len, offs,
+                                   (float)(lo + j), g, acc_re, acc_im);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
 }
 

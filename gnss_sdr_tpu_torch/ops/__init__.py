@@ -1,9 +1,9 @@
 """Hand-written CUDA kernels and their plain PyTorch versions.
 
 - ``track_kernel_blocked.track_blocked``: K code periods of closed-loop
-  tracking for all channels in one launch, one CTA per channel
-  (csrc/track_blocked.cu);
-- ``track_kernel.track_full``: the same loop and rows, one warp per
+  tracking for all channels in one launch, a thread-block cluster of R
+  CTAs per channel (csrc/track_blocked.cu);
+- ``track_kernel.track_full``: the same loop and rows, one CTA per
   channel (csrc/track_full.cu);
 - ``correlator.correlator``: one period's multi-tap correlation
   (csrc/correlator.cu);

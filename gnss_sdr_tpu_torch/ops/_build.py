@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,12 +26,13 @@ BUILD_ROOT = _PKG / "_build"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
-# per-source flags: the fused trackers' period-length rule must round like
-# the plain version, so nvcc may not contract a*b+c into an FMA there; the
-# probe's multiply-add chains round like their plain versions the same way
-FILE_FLAGS = {"track_blocked.cu": ["-fmad=false"],
-              "track_full.cu": ["-fmad=false"],
-              "track_simple.cu": ["-fmad=false"],
+# per-source flags: K4's per-sample step and period-length rule must round
+# like its plain version, so nvcc may not contract a*b+c into an FMA there;
+# the probe's multiply-add chains round like their plain versions the same
+# way. K1 and K2 build with contraction on: the sums of their period
+# geometry and closure are written with __fadd_rn and friends
+# (csrc/track_loop.cuh), which round as written under any flag.
+FILE_FLAGS = {"track_simple.cu": ["-fmad=false"],
               "probe.cu": ["-fmad=false"]}
 
 _lock = threading.Lock()
@@ -68,6 +70,8 @@ def build() -> Path:
     so = out_dir / "libgnss_kernels.so"
     if so.exists():
         build_seconds = 0.0 if build_seconds is None else build_seconds
+        if not build_log and (out_dir / "build.log").exists():
+            build_log = (out_dir / "build.log").read_text()
         return so
     t0 = time.perf_counter()
     tmp = out_dir.with_name(out_dir.name + f".tmp{os.getpid()}")
@@ -107,22 +111,56 @@ def build() -> Path:
     return so
 
 
+def kernel_resources(log: str) -> dict[str, dict[str, int]]:
+    """Registers, stack frame and spill bytes of each entry function, read
+    from the ``-Xptxas -v`` lines of a build log; keyed by mangled name."""
+    out: dict[str, dict[str, int]] = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    # K1 and K2 take the same arguments
-    for fn in (lib.gnss_track_blocked, lib.gnss_track_full):
-        fn.argtypes = [
-            p, i,        # window (float2 [L]), L
-            p, i,        # codes (f32 [C, code_len]), code_len
-            p, i,        # scalars (f32 [C, ns]), ns
-            p,           # pos (int32 [C])
-            p,           # out (f32 [C, K, 128])
-            i, i, i,     # C, K, n_max
-            p, i,        # params (host f32 [16]), num_taps
-            i, i, i,     # pll_order, dll_order, interp_code
-            p,           # stream
-        ]
-        fn.restype = i
+    # K1 takes K2's arguments and its cluster shape
+    fused = [
+        p, i,            # window (float2 [L]), L
+        p, i,            # codes (f32 [C, code_len]), code_len
+        p, i,            # scalars (f32 [C, ns]), ns
+        p,               # pos (int32 [C])
+        p,               # out (f32 [C, K, 128])
+        i, i, i,         # C, K, n_max
+        p, i,            # params (host f32 [16]), num_taps
+        i, i, i,         # pll_order, dll_order, interp_code
+    ]
+    lib.gnss_track_full.argtypes = fused + [p]            # stream
+    lib.gnss_track_full.restype = i
+    lib.gnss_track_blocked.argtypes = fused + [
+        i, i,            # CTAs per channel (cluster size), slice width
+        p,               # stream
+    ]
+    lib.gnss_track_blocked.restype = i
+    lib.gnss_track_blocked_max_clusters.argtypes = [
+        i, i, i, i,      # C, code_len, n_max, interp_code
+        i, i,            # cluster size, slice width
+        ctypes.POINTER(ctypes.c_int),   # out: clusters resident at once
+    ]
+    lib.gnss_track_blocked_max_clusters.restype = i
     lib.gnss_correlator.argtypes = [
         p, i,            # x (float2 [C, N]), N
         p, p, i, i,      # codes, dcodes (f32 [C, Q*128]), Q*128, code_len

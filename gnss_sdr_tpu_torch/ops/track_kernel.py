@@ -3,7 +3,7 @@
 **K2**, the per-channel fused tracker, is the counterpart of
 ``make_fused_tracker_full`` (``track_kernel.py:476-959``): one launch runs
 K code periods of closed-loop DLL/PLL(/FLL) tracking for C channels, one
-channel per warp (``csrc/track_full.cu``). Its semantics, inputs and
+CTA per channel (``csrc/track_full.cu``). Its semantics, inputs and
 output rows are K1's (``ops/track_kernel_blocked.py``): a complex64 window
 [W], the float32 chip table [C, L], the float32 scalar block
 [C, 24 + 2T + 1] of ``ops/slots.py`` and int32 positions [C]; the output

@@ -13,7 +13,9 @@ float32 [C, K, 128], one row per channel and period.
 
 ``track_blocked`` launches ``csrc/track_blocked.cu`` for CUDA tensors and
 runs ``track_blocked_plain`` for CPU tensors; it never falls back from one
-to the other.
+to the other. On the card each channel is a thread-block cluster of R CTAs,
+each taking a slice of S samples of every period; ``cluster_shape`` is the
+rule that picks R and S from the channel count.
 
 Inputs differ from the TPU kernel's where those were TPU layouts: the
 window is the sample stream itself (complex64 [W]), the code table is the
@@ -32,6 +34,7 @@ FDMA and T = 5 raise ``NotImplementedError``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import ClassVar
 
@@ -194,6 +197,41 @@ def check_inputs(window, codes, scalars, pos, spec: BlockedSpec) -> None:
                          f"cover positions {lo}..{hi}")
 
 
+MAX_CLUSTER = 8        # the portable thread-block cluster size
+COPY_ALIGN = 2         # samples: a 16-byte bulk copy holds two complex64
+
+
+def cluster_shape(c: int, n_max: int, sms: int,
+                  max_clusters=None) -> tuple[int, int]:
+    """K1's launch shape for ``c`` channels of at most ``n_max`` samples a
+    period on a card of ``sms`` multiprocessors (132 on an H100 SXM): (R,
+    S), R CTAs per channel (one cluster) each taking S samples of every
+    period. R is the largest power of two <= 8 with R * c <= sms, or 1;
+    then, if ``max_clusters(R, S)`` (the card's count of such
+    clusters resident at once) is below ``c``, R halves until they fit or
+    R = 1. S is ceil(n_max / R) rounded up to the copy alignment, so CTA r
+    covers [r * S, (r + 1) * S) and the R slices cover [0, n_max)."""
+    def width(r: int) -> int:
+        s = -(-n_max // r)
+        return -(-s // COPY_ALIGN) * COPY_ALIGN
+
+    r = MAX_CLUSTER
+    while r > 1 and r * c > sms:
+        r //= 2
+    while r > 1 and max_clusters is not None and max_clusters(r, width(r)) < c:
+        r //= 2
+    return r, width(r)
+
+
+def wrap_code_index(m: torch.Tensor, code_len: int) -> torch.Tensor:
+    """``m % code_len`` as the kernels compute it
+    (``csrc/track_loop.cuh::wrap_index``): one conditional add or subtract
+    for an index in [-code_len, 2 code_len), ``%`` beyond."""
+    r = torch.where(m < 0, m + code_len,
+                    torch.where(m >= code_len, m - code_len, m))
+    return torch.where((r < 0) | (r >= code_len), m % code_len, r)
+
+
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """float32 a*b + c rounded once, as a fused multiply-add rounds it (the
     product of two float32 values is exact in float64)."""
@@ -215,12 +253,16 @@ def period_geometry(rem, dcode, inv_fs, nominal_step, c0, spcf, n_max: int):
 
 
 def tap_sums(window, codes, posi, n, rem, code_step, phase0, dstep, offs,
-             interp_code: bool, n_max: int) -> list:
+             interp_code: bool, n_max: int,
+             reciprocal_step: bool = False) -> list:
     """One period's tap sums [re_0, im_0, re_1, ...] per channel
     (``csrc/track_loop.cuh::accumulate_sample``): the samples at
     ``posi + k`` for k < n (zeros outside the window), wiped off at the
     carrier phase ``phase0 + dstep * k``, times the soft replica at the
-    code phase ``rem + code_step * k + offs[t]``; both ramps rounded once."""
+    code phase ``rem + code_step * k + offs[t]``; both ramps rounded once.
+    With ``reciprocal_step`` the replica's ramp weight multiplies by
+    ``1 / code_step`` instead of dividing by it, as K1 and K2 do
+    (``accumulate_staged``)."""
     dev = window.device
     f32 = torch.float32
     w_len = window.shape[0]
@@ -241,19 +283,22 @@ def tap_sums(window, codes, posi, n, rem, code_step, phase0, dstep, offs,
     wr = (xr * cw + xi * sw) * mask
     wi = (xi * cw - xr * sw) * mask
     cph = _fma(code_step[:, None], kf[None, :], rem[:, None])
+    inv_step = (1.0 / code_step)[:, None]
     taps = []
     for off in offs:
         tap_ph = cph + off
         if interp_code:
             fl = torch.floor(tap_ph + 0.5)
-            m = fl.to(torch.int64) % length
+            m = wrap_code_index(fl.to(torch.int64), length)
             cur = torch.gather(codes, 1, m)
-            prev = torch.gather(codes, 1, (m - 1) % length)
-            wgt = torch.clamp((tap_ph - fl) / code_step[:, None] + 0.5,
-                              0.0, 1.0)
+            prev = torch.gather(codes, 1, torch.where(m == 0, length - 1,
+                                                      m - 1))
+            d = tap_ph - fl
+            d = d * inv_step if reciprocal_step else d / code_step[:, None]
+            wgt = torch.clamp(d + 0.5, 0.0, 1.0)
             v = prev + (cur - prev) * wgt
         else:
-            m = torch.floor(tap_ph).to(torch.int64) % length
+            m = wrap_code_index(torch.floor(tap_ph).to(torch.int64), length)
             v = torch.gather(codes, 1, m)
         taps.append((wr * v).sum(1))
         taps.append((wi * v).sum(1))
@@ -316,7 +361,8 @@ def track_blocked_plain(window, codes, scalars, pos,
                                               nominal_step, c0, spcf, n_max)
         ni = n.to(torch.int64)
         taps = tap_sums(window, codes, posi, n, rem, code_step, phase0,
-                        dphase_hz * doppler, offs, spec.interp_code, n_max)
+                        dphase_hz * doppler, offs, spec.interp_code, n_max,
+                        reciprocal_step=True)
         d_re, d_im = taps[2 * p], taps[2 * p + 1]
 
         # ---- coherent accumulation --------------------------------------
@@ -449,16 +495,38 @@ def track_blocked(window, codes, scalars, pos,
 def launch(window, codes, scalars, pos, spec: BlockedSpec,
            out: torch.Tensor) -> None:
     """Launch K1 on checked CUDA inputs into ``out`` [C, K, 128], on the
-    current stream, without synchronising."""
-    launch_entry("gnss_track_blocked", window, codes, scalars, pos, spec, out)
+    current stream, without synchronising; ``track_blocked.cluster`` keeps
+    the cluster size R of the last launch."""
+    sms = torch.cuda.get_device_properties(
+        window.device).multi_processor_count
+    r, width = cluster_shape(
+        scalars.shape[0], spec.n_max, sms,
+        functools.partial(_max_clusters, scalars.shape[0], spec.code_len,
+                          spec.n_max, spec.interp_code, window.device.index))
+    launch_entry("gnss_track_blocked", window, codes, scalars, pos, spec, out,
+                 r, width)
+    track_blocked.cluster = r
     track_blocked.launches += 1
 
 
+@functools.lru_cache(maxsize=64)
+def _max_clusters(c: int, code_len: int, n_max: int, interp: bool,
+                  device: int | None, r: int, width: int) -> int:
+    """The card's count of K1 clusters of ``r`` CTAs resident at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _build.library().gnss_track_blocked_max_clusters(
+            c, code_len, n_max, int(interp), r, width, ctypes.byref(n))
+    _build.check(rc, "gnss_track_blocked_max_clusters")
+    return n.value
+
+
 def launch_entry(entry: str, window, codes, scalars, pos,
-                 spec: BlockedSpec, out: torch.Tensor) -> None:
-    """Call the C entry point ``entry`` of the kernel library (K1's
-    ``gnss_track_blocked`` or K2's ``gnss_track_full``, which take the same
-    arguments); raises if the launch fails."""
+                 spec: BlockedSpec, out: torch.Tensor, *shape: int) -> None:
+    """Call the C entry point ``entry`` of the kernel library (K2's
+    ``gnss_track_full``, or K1's ``gnss_track_blocked``, which also takes
+    its cluster ``shape``, (R, S)); raises if the launch fails."""
     c = scalars.shape[0]
     k = spec.constants()
     params = [k["inv_fs"], k["nominal_step"], k["aid_ratio"], k["w0f"],
@@ -473,8 +541,9 @@ def launch_entry(entry: str, window, codes, scalars, pos,
                 spec.code_len, scalars.data_ptr(), spec.num_scalars,
                 pos.data_ptr(), out.data_ptr(), c, spec.n_periods,
                 spec.n_max, hp, spec.num_taps, spec.pll_order,
-                spec.dll_order, int(spec.interp_code), stream)
+                spec.dll_order, int(spec.interp_code), *shape, stream)
     _build.check(rc, entry)
 
 
 track_blocked.launches = 0
+track_blocked.cluster = None

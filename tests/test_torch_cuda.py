@@ -22,6 +22,7 @@ from torch_cases import (
     assert_rows_close,
     correlator_inputs,
     correlator_rel_err,
+    fused_noise_case,
     run_tracker,
     tracker_inputs,
 )
@@ -36,40 +37,49 @@ def cuda():
     return torch.device("cuda")
 
 
+# K1 and K2 at every cluster size of K1 (R = 8, 8, 4, 2, 1 on an H100 SXM;
+# C = 140 puts more CTAs than SMs), both replica forms, on the noise window
+# of fused_noise_case: varied positions and Dopplers, extended integration
+# with FLL, the atan2 flag on one channel, from C = 3 a disabled channel
+# whose periods run past the end of the window (it reads zeros there) and
+# from C = 5 one inside it. tests/fused_noise_divergence.py prints the same comparisons
+# period by period.
+FUSED_CASES = [(c, interp) for c in (1, 8, 33, 60, 140)
+               for interp in (True, False)]
+FUSED_IDS = [f"C{c}_{'interp' if i else 'nointerp'}" for c, i in FUSED_CASES]
+
+
 @pytest.mark.cuda
-def test_track_blocked_kernel_matches_plain_cuda(cuda):
-    C, K, L = 8, 20, 1023
-    nmax = int(np.ceil(FS * L / 1.023e6)) + 2
-    spec = k1.make_blocked_spec(
-        K, nmax, L, TAPS, fs=FS, code_rate_cps=1.023e6,
-        carrier_freq_hz=1575.42e6, pll_order=3, dll_order=2)
-    codes, wr, wi, scal = tracker_inputs(C, K, L, nmax, 2, 2, 11)
-    window = (wr.ravel() + 1j * wi.ravel()).astype(np.complex64)
+@pytest.mark.parametrize("C,interp", FUSED_CASES, ids=FUSED_IDS)
+def test_track_blocked_kernel_matches_plain_cuda(cuda, C, interp):
+    """K1 against its plain version over two launches of K = 20: 5e-5
+    relative over the first two periods, 2e-3 over all, lanes 10 and 17
+    exact; launched with the cluster size of ``cluster_shape``."""
+    spec, window, codes, scal, disabled = fused_noise_case(
+        C, interp, k1.make_blocked_spec)
     before = k1.track_blocked.launches
     o_k = run_tracker(k1.track_blocked, spec, window, codes, scal, 2, cuda)
     torch.cuda.synchronize()
     assert k1.track_blocked.launches == before + 2
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert k1.track_blocked.cluster == k1.cluster_shape(C, spec.n_max, sms)[0]
     o_p = run_tracker(k1.track_blocked_plain, spec, window, codes, scal, 2,
                       cuda)
     # first two periods at the f32 bound, all 2K at the long-horizon bound
     # (reduction order differs; the closed loop amplifies it slowly)
     assert_rows_close(o_p[:, :2], o_k[:, :2], tol=5e-5)
     assert_rows_close(o_p, o_k, tol=2e-3)
+    for ch in disabled:
+        assert np.all(o_k[ch, :, 17] == scal[ch, 0])
 
 
 @pytest.mark.cuda
-def test_track_full_kernel_matches_plain_cuda(cuda):
-    """K2 against its plain version (K1's) and against K1, with a
-    disabled channel and the atan2 flag on one channel."""
-    C, K, L = 7, 20, 1023
-    nmax = int(np.ceil(FS * L / 1.023e6)) + 2
-    kw = dict(fs=FS, code_rate_cps=1.023e6, carrier_freq_hz=1575.42e6,
-              pll_order=3, dll_order=2)
-    codes, wr, wi, scal = tracker_inputs(C, K, L, nmax, 2, 2, 13)
-    scal[2, 7] = 0.0
-    scal[4, 15] = 1.0
-    window = (wr.ravel() + 1j * wi.ravel()).astype(np.complex64)
-    spec = k2.make_full_spec(K, nmax, L, TAPS, **kw)
+@pytest.mark.parametrize("C,interp", FUSED_CASES, ids=FUSED_IDS)
+def test_track_full_kernel_matches_plain_cuda(cuda, C, interp):
+    """K2 against its plain version (K1's) and against K1, at the same
+    tolerances."""
+    spec, window, codes, scal, disabled = fused_noise_case(
+        C, interp, k2.make_full_spec)
     before = k2.track_full.launches
     o_k = run_tracker(k2.track_full, spec, window, codes, scal, 2, cuda)
     torch.cuda.synchronize()
@@ -78,11 +88,12 @@ def test_track_full_kernel_matches_plain_cuda(cuda):
                       cuda)
     assert_rows_close(o_p[:, :2], o_k[:, :2], tol=5e-5)
     assert_rows_close(o_p, o_k, tol=2e-3)
-    o_1 = run_tracker(k1.track_blocked, k1.make_blocked_spec(
-        K, nmax, L, TAPS, **kw), window, codes, scal, 2, cuda)
+    spec1, *_ = fused_noise_case(C, interp, k1.make_blocked_spec)
+    o_1 = run_tracker(k1.track_blocked, spec1, window, codes, scal, 2, cuda)
     assert_rows_close(o_1[:, :2], o_k[:, :2], tol=5e-5)
     assert_rows_close(o_1, o_k, tol=2e-3)
-    assert np.all(o_k[2, :, 17] == scal[2, 0])
+    for ch in disabled:
+        assert np.all(o_k[ch, :, 17] == scal[ch, 0])
 
 
 @pytest.mark.cuda

@@ -43,6 +43,29 @@ def tracker_inputs(C, K, L, nmax, launches, extend, seed):
     return codes, wr, wi, scal
 
 
+def fused_noise_case(C, interp, spec_fn, seed=11):
+    """K1/K2 inputs on a noise window (``tracker_inputs`` at K = 20, two
+    launches, 2-period integration with FLL): random codes, positions
+    5 + 37 c, Dopplers from -2500 to 2500 Hz, the atan2 flag on channel
+    min(4, C - 1), from C = 3 the last channel disabled and placed so that
+    its periods run past the end of the window, and from C = 5 channel 2
+    disabled where it is. Returns spec, window, codes, scalars and the
+    disabled channels."""
+    K, L = 20, 1023
+    nmax = int(np.ceil(FS * L / 1.023e6)) + 2
+    spec = spec_fn(K, nmax, L, TAPS, fs=FS, code_rate_cps=1.023e6,
+                   carrier_freq_hz=1575.42e6, pll_order=3, dll_order=2,
+                   interp_code=interp)
+    codes, wr, wi, scal = tracker_inputs(C, K, L, nmax, 2, 2, seed)
+    window = (wr.ravel() + 1j * wi.ravel()).astype(np.complex64)
+    scal[min(4, C - 1), 15] = 1.0
+    disabled = ([2] if C >= 5 else []) + ([C - 1] if C >= 3 else [])
+    scal[disabled, 7] = 0.0
+    if C >= 3:
+        scal[C - 1, 0] = window.size - nmax // 2
+    return spec, window, codes, scal, disabled
+
+
 def carry(prev, o):
     """Next launch's scalar block from the last row (the fused engine's
     fold, as tests/test_track_kernel_blocked.py writes it)."""
