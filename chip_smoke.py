@@ -139,6 +139,10 @@ def fused_ops_per_sample(num_taps: int) -> int:
     return FUSED_OPS_PER_SAMPLE + (num_taps - 3) * (12 + 4)
 
 
+def k3_ops_per_sample(num_taps: int, pilot: bool) -> int:
+    return K3_OPS_PER_SAMPLE + (num_taps - 3 + int(pilot)) * (20 + 4)
+
+
 def simple_lanes(num_taps: int) -> list[int]:
     """K4's output lanes: the taps, then lanes 10-19."""
     return list(range(2 * num_taps)) + list(range(10, 20))
@@ -234,6 +238,78 @@ def assert_match(a, b, prompt_tol=5e-3, dop_tol=0.1) -> dict:
         if not diffs[k] < lim:
             raise AssertionError(f"engines disagree on {k}: {diffs[k]}")
     return diffs
+
+
+def k3_phase(dev, tbl, kernels) -> None:
+    """Phase 3: K3 against its plain version on random samples (N = 2688,
+    2602 valid) at the eager engine's C = 8 (R = 8) and at C = 132 (R = 1),
+    T = 3, and at C = 8 with T = 5 and the data prompt; each timed over five
+    runs of 200 launches queued ahead of the device (the median is the
+    kernel's time) and, at C = 8, T = 3, five runs paced by the host. The
+    C = 8, T = 3 numbers go into ``kernels``."""
+    from gnss_sdr_tpu_torch.ops import correlator as k3
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.ops.correlator import pack_code_table
+    from gnss_sdr_tpu_torch.ops.slots import LANES
+
+    L, n_valid, npad = 1023, 2602, 2688
+    sms = k1.sm_count(dev)
+    for C, taps, pilot in ((8, [-0.25, 0.0, 0.25], False),
+                           (132, [-0.25, 0.0, 0.25], False),
+                           (8, [-0.5, -0.25, 0.0, 0.25, 0.5], True)):
+        rng = np.random.default_rng(0)
+        x = torch.as_tensor((rng.normal(size=(C, npad))
+                             + 1j * rng.normal(size=(C, npad))
+                             ).astype(np.complex64), device=dev)
+        rows = np.arange(C) % len(tbl)
+        cq = torch.as_tensor(pack_code_table(tbl[rows]), device=dev)
+        dq = torch.as_tensor(pack_code_table(-tbl[rows[::-1]]), device=dev)
+        sc = np.zeros((C, 8), np.float32)
+        sc[:, 0] = rng.uniform(0, 1023, C)
+        sc[:, 1] = 1.023e6 / FS
+        sc[:, 2] = rng.uniform(0, 6.28, C)
+        sc[:, 3] = rng.uniform(-0.012, 0.012, C)
+        sc[:, 4] = n_valid
+        sc = torch.as_tensor(sc, device=dev)
+        kw = dict(code_len=L, track_pilot=pilot)
+        nt = len(taps) + (1 if pilot else 0)
+        got = k3.correlator(x, cq, dq, sc, taps, **kw)
+        cluster = dict(cluster_ctas=k3.correlator.cluster,
+                       cluster_rule=k1.cluster_shape(C, npad, sms)[0])
+        ref = k3.correlator_plain(x, cq, dq, sc, taps, **kw)
+        g, r = got.cpu().numpy()[:, 0], ref.cpu().numpy()[:, 0]
+        gc = g[:, 0:2 * nt:2] + 1j * g[:, 1:2 * nt:2]
+        rc = r[:, 0:2 * nt:2] + 1j * r[:, 1:2 * nt:2]
+        rel = float((np.abs(gc - rc) / np.maximum(np.abs(rc), 1.0)).max())
+        if not rel < 2e-3 or np.any(g[:, 2 * nt:] != 0):
+            raise AssertionError(f"K3 C={C} T={len(taps)} disagrees with its "
+                                 f"plain version: {rel}")
+        out = torch.empty_like(got)
+
+        def k3_launch():
+            k3.launch(x, cq, dq, sc, taps, out, **kw)
+
+        main = C == 8 and not pilot
+        runs = [cuda_ms(k3_launch, 200, name=f"K3 C={C} T={len(taps)}")
+                for _ in range(5)]
+        paced = ([cuda_ms(k3_launch, 200, queue_ahead=False)
+                  for _ in range(5)] if main else None)
+        ms = float(np.median(runs))
+        plain_ms = cuda_ms(
+            lambda: k3.correlator_plain(x, cq, dq, sc, taps, **kw), 20,
+            queue_ahead=False)
+        # samples each channel reads (n_valid of N), tables, scalars, output
+        k3_bytes = (C * n_valid * 8 + C * L * 4 * (2 if pilot else 1)
+                    + sc.numel() * 4 + C * LANES * 4)
+        b_ms, b_by = bound(k3_bytes, C * n_valid * k3_ops_per_sample(
+            len(taps), pilot))
+        res = dict(max_abs_err=float(np.abs(g - r).max()), ms=ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        if main:
+            kernels["correlator"] = dict(res)
+        emit("k3_vs_plain", C=C, N=npad, n_valid=n_valid, L=L, T=len(taps),
+             data_prompt=pilot, rel_err=rel, tol=2e-3, ms_runs=runs,
+             ms_host_paced_runs=paced, **cluster, **res)
 
 
 def fused_phase(dev, tbl, sig, dops, delays, C, kernels) -> None:
@@ -393,10 +469,16 @@ def cli_phase(capture: np.ndarray, scen, tmp: Path) -> dict:
 def k4_phase(dev, tbl, sig, dops, delays, kernels) -> None:
     """Phase 8: K4 against its plain version at C = 8, K = 20 and 1000 on
     phase 4's signal: T = 3 order 2, T = 5 order 3, and T = 3 with one
-    channel disabled (K4 advances it all the same)."""
+    channel disabled (K4 advances it all the same); K1 timed beside it on
+    the same channels, and both kernels' cluster sizes."""
     from gnss_sdr_tpu_torch.ops import track_kernel as tk
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
     from gnss_sdr_tpu_torch.ops.slots import LANES
     from gnss_sdr_tpu_torch.receiver.plans import gps_l1ca_plan
+    from gnss_sdr_tpu_torch.tracking.fused import (
+        _pack_scalars,
+        build_fused_engine,
+    )
     from gnss_sdr_tpu_torch.tracking.tracker import Tracker
 
     C, L = len(dops), 1023
@@ -416,6 +498,13 @@ def k4_phase(dev, tbl, sig, dops, delays, kernels) -> None:
         st = trk.state.replace(pos=torch.as_tensor(
             trk.pos_abs.astype(np.int32), device=dev))
         codes = torch.as_tensor(trk.codes, device=dev)
+        reps = 50 if K == 20 else 5
+        k1_args = (window, codes, _pack_scalars(conf, st), st.pos,
+                   build_fused_engine(conf))
+        k1_out = torch.empty((C, K, LANES), dtype=torch.float32, device=dev)
+        k1_ms = cuda_ms(lambda: k1.launch(*k1_args, k1_out), reps,
+                        name=f"K1 beside K4 K={K}")
+        k1_cluster = k1.track_blocked.cluster
         for name, taps, order, disabled in cases:
             scal = tk.fused_scalars_from_state(st, conf).contiguous()
             if disabled is not None:
@@ -436,8 +525,8 @@ def k4_phase(dev, tbl, sig, dops, delays, kernels) -> None:
                     np.diff(o_k[disabled, :, 17]) > 0):
                 raise AssertionError("K4 did not advance the disabled channel")
             out = torch.empty((C, K, LANES), dtype=torch.float32, device=dev)
-            ms = cuda_ms(lambda: tk.launch_simple(*args, out),
-                         50 if K == 20 else 5, name=f"K4 {name} K={K}")
+            ms = cuda_ms(lambda: tk.launch_simple(*args, out), reps,
+                         name=f"K4 {name} K={K}")
             plain_ms = cuda_ms(lambda: tk.track_simple_plain(*args), 1,
                                queue_ahead=False)
             n_total = float(o_p[:, :, 10].sum())
@@ -450,7 +539,12 @@ def k4_phase(dev, tbl, sig, dops, delays, kernels) -> None:
                  max_abs_err=float(np.abs(o_p[:, :, lanes]
                                           - o_k[:, :, lanes]).max()),
                  ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                 msamples_per_s=n_total / (ms * 1e-3) / 1e6)
+                 msamples_per_s=n_total / (ms * 1e-3) / 1e6,
+                 us_per_period=ms * 1e3 / K,
+                 cluster_ctas=tk.track_simple.cluster,
+                 cluster_rule=k1.cluster_shape(C, spec.n_max,
+                                               k1.sm_count(dev))[0],
+                 k1_ms=k1_ms, k1_cluster_ctas=k1_cluster)
 
 
 def kbench_phase(dev, kernels) -> dict:
@@ -529,6 +623,8 @@ def kbench_phase(dev, kernels) -> dict:
             us_per_ch_period=ms * 1e3 / (C * K), us_per_period=ms * 1e3 / K)
         if name == "track_blocked":
             shape[name]["cluster_ctas"] = k1.track_blocked.cluster
+        if name == "track_simple":
+            shape[name]["cluster_ctas"] = tk.track_simple.cluster
         emit("kbench_shape", kernel=name, C=C, K=K, n_max=spec.n_max,
              exact_lanes=EXACT_LANES, **rels, **shape[name])
     kernels["track_simple"] = dict(shape["track_simple"],
@@ -611,8 +707,6 @@ def main() -> int:
     from gnss_sdr_tpu_torch.ops import correlator as k3
     from gnss_sdr_tpu_torch.ops import track_kernel as k2
     from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
-    from gnss_sdr_tpu_torch.ops.correlator import pack_code_table
-    from gnss_sdr_tpu_torch.ops.slots import LANES
     from gnss_sdr_tpu_torch.receiver.plans import gps_l1ca_plan
     from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
     from gnss_sdr_tpu_torch.simulate.scenario import GpsScenario, ScenarioConfig
@@ -637,63 +731,27 @@ def main() -> int:
     _build.library()
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=_build.build_seconds)
-    # registers, stack frame and spills of K1 and K2 (ptxas -v)
-    res = {name: r for name, r in _build.kernel_resources(
-        _build.build_log).items()
-        if "track_blocked_kernel" in name or "track_full_kernel" in name}
-    if len(res) != 4:
-        raise AssertionError(f"build log names {len(res)} K1/K2 kernels")
-    emit("k1_k2_resources", kernels=res)
+    # registers, stack frame and spills of K1, K2, K3 and K4 (ptxas -v),
+    # one entry per instantiation: K1 and K2 per replica form, K3 per tap
+    # count, replica form and data prompt, K4 per tap count and replica form
+    found = _build.kernel_resources(_build.build_log)
+    res = {}
+    for kname, tag, want in (("track_blocked", "BlockedLoop", 2),
+                             ("track_full", "track_full_kernel", 2),
+                             ("correlator", "correlator_kernel", 8),
+                             ("track_simple", "SimpleLoop", 4)):
+        res[kname] = {n: r for n, r in found.items() if tag in n}
+        if len(res[kname]) != want:
+            raise AssertionError(f"build log names {len(res[kname])} "
+                                 f"{kname} kernels, want {want}")
+    emit("kernel_resources", kernels=res)
 
     tbl = gps_l1_ca_code_table().astype(np.float32)
     kernels = {}
 
     # ---- 3. K3 against its plain version ---------------------------------
-    C, L, n_valid = 8, 1023, 2602
-    npad = 2688
-    rng = np.random.default_rng(0)
-    x = torch.as_tensor((rng.normal(size=(C, npad))
-                         + 1j * rng.normal(size=(C, npad))
-                         ).astype(np.complex64), device=dev)
-    cq = torch.as_tensor(pack_code_table(tbl[:C]), device=dev)
-    sc = np.zeros((C, 8), np.float32)
-    sc[:, 0] = rng.uniform(0, 1023, C)
-    sc[:, 1] = 1.023e6 / FS
-    sc[:, 2] = rng.uniform(0, 6.28, C)
-    sc[:, 3] = rng.uniform(-0.012, 0.012, C)
-    sc[:, 4] = n_valid
-    sc = torch.as_tensor(sc, device=dev)
-    taps = [-0.25, 0.0, 0.25]
-    got = k3.correlator(x, cq, cq, sc, taps, code_len=L)
-    ref = k3.correlator_plain(x, cq, cq, sc, taps, code_len=L)
-    g, r = got.cpu().numpy()[:, 0], ref.cpu().numpy()[:, 0]
-    gc, rc = g[:, 0:6:2] + 1j * g[:, 1:6:2], r[:, 0:6:2] + 1j * r[:, 1:6:2]
-    rel = float((np.abs(gc - rc) / np.maximum(np.abs(rc), 1.0)).max())
-    if not rel < 2e-3 or np.any(g[:, 6:] != 0):
-        raise AssertionError(f"K3 disagrees with its plain version: {rel}")
-    out = torch.empty_like(got)
-    # five runs of 200 launches queued ahead of the device (the median is
-    # the kernel's time), and five paced by the host for comparison: the
-    # host's launch interval is longer than K3
-    def k3_launch():
-        k3.launch(x, cq, cq, sc, taps, out, code_len=L)
-
-    k3_runs = [cuda_ms(k3_launch, 200, name="K3") for _ in range(5)]
-    k3_paced = [cuda_ms(k3_launch, 200, queue_ahead=False) for _ in range(5)]
-    ms = float(np.median(k3_runs))
-    plain_ms = cuda_ms(
-        lambda: k3.correlator_plain(x, cq, cq, sc, taps, code_len=L), 20,
-        queue_ahead=False)
-    # samples each channel reads (n_valid of N), tables, scalars, output
-    k3_bytes = (C * n_valid * 8 + C * L * 4 + sc.numel() * 4
-                + C * LANES * 4)
-    b_ms, b_by = bound(k3_bytes, C * n_valid * K3_OPS_PER_SAMPLE)
-    kernels["correlator"] = dict(
-        max_abs_err=float(np.abs(g - r).max()), ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by)
-    emit("k3_vs_plain", C=C, N=npad, n_valid=n_valid, L=L, T=3,
-         rel_err=rel, tol=2e-3, ms_runs=k3_runs, ms_host_paced_runs=k3_paced,
-         **kernels["correlator"])
+    k3_phase(dev, tbl, kernels)
+    C = 8
 
     # ---- 4. K1 and K2 against their plain version, K = 20 and 1000 -------
     # (K2's plain version is K1's: the two kernels compute the same rows);

@@ -38,11 +38,8 @@
 
 namespace {
 
-constexpr int NCW = 8;                    // consumer warps
-constexpr int THREADS = (NCW + 1) * 32;   // + the producer warp
-
 template <int T, bool INTERP>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(RING_THREADS)
 track_full_kernel(const float2* __restrict__ window,
                   const float* __restrict__ codes,
                   const float* __restrict__ scalars,
@@ -61,9 +58,9 @@ track_full_kernel(const float2* __restrict__ window,
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
 
-  for (int i = tid; i < P.code_len; i += THREADS)
+  for (int i = tid; i < P.code_len; i += RING_THREADS)
     s_code[i] = codes[(size_t)c * P.code_len + i];
-  for (int i = tid; i < LANES; i += THREADS) s_row[i] = 0.0f;
+  for (int i = tid; i < LANES; i += RING_THREADS) s_row[i] = 0.0f;
   if (tid == 0) {
     for (int s = 0; s < 2; ++s) {
       mbar_init(&full[s], 32);
@@ -144,7 +141,7 @@ cudaError_t launch(const float2* window, const float* codes,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  track_full_kernel<T, INTERP><<<c, THREADS, smem, stream>>>(
+  track_full_kernel<T, INTERP><<<c, RING_THREADS, smem, stream>>>(
       window, codes, scalars, pos, out, P, R);
   return cudaGetLastError();
 }

@@ -1,28 +1,30 @@
-// The per-period loop of the fused GPS trackers, shared by the two CUDA
-// mappings of it: csrc/track_blocked.cu (K1, a thread-block cluster per
-// channel) and csrc/track_full.cu (K2, one CTA per channel). The simple
-// tracker K4 (csrc/track_simple.cu) takes the period geometry and the
-// per-sample step accumulate_sample from here and has its own loop closure.
+// The per-period loop of the fused GPS trackers, shared by their CUDA
+// mappings: csrc/track_blocked.cu (K1) and csrc/track_simple.cu (K4) run the
+// cluster kernel below (cluster_track_kernel, a thread-block cluster of R
+// CTAs per channel) with their own loop policies, csrc/track_full.cu (K2,
+// one CTA per channel) its own kernel on the same ring and closure; the
+// correlator csrc/correlator.cu (K3) takes the staged per-sample helpers.
 //
 // Scalar input slots and output lanes are those of ops/slots.py. The
-// period geometry and the loop closure are float32 exactly as the plain
-// version (ops/track_kernel_blocked.py::track_blocked_plain) writes them:
-// every sum that could contract with a product into an FMA is written with
+// period geometry and the loop closures are float32 exactly as the plain
+// versions (ops/track_kernel_blocked.py::track_blocked_plain,
+// ops/track_kernel.py::track_simple_plain) write them: every sum that could
+// contract with a product into an FMA is written with
 // __fadd_rn/__fsub_rn/__fmul_rn, which nvcc never contracts, so the
 // period-length rule (round, then correct a negative remnant) rounds as
 // written under any -fmad setting and the period lengths and positions
-// agree exactly with the plain version. K1 and K2 therefore build with FMA
-// contraction on; K4, whose per-sample step is accumulate_sample, still
-// builds with -fmad=false.
+// agree exactly with the plain versions. Every kernel here therefore builds
+// with FMA contraction on.
 //
-// K1 and K2 take their samples from a two-slot ring in shared memory
+// The trackers take their samples from a two-slot ring in shared memory
 // (ring_produce_period / ring_consume_period below): one producer warp
 // stages each period's samples with cp.async.bulk (TMA's 1-D bulk copy)
 // completing on an mbarrier, one period ahead of the consumer warps, which
-// run the cheaper per-sample step accumulate_staged on what has arrived.
+// run the per-sample step accumulate_staged on what has arrived.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -321,53 +323,7 @@ __device__ void load_state(State<T>& s, const float* sc, int pos,
   s.w0d = s.dll_bw / P.dll_div;
 }
 
-// soft replica: each chip transition ramps linearly over one sample
-template <bool INTERP>
-__device__ __forceinline__ float replica(const float* code, int code_len,
-                                         float tap_ph, float step) {
-  if (INTERP) {
-    const float fl = floorf(tap_ph + 0.5f);
-    int m = (int)fl % code_len;
-    if (m < 0) m += code_len;
-    const int mp = m == 0 ? code_len - 1 : m - 1;
-    const float cur = code[m];
-    const float prev = code[mp];
-    const float d = tap_ph - fl;
-    const float w = fminf(fmaxf(d / step + 0.5f, 0.0f), 1.0f);
-    return prev + (cur - prev) * w;
-  }
-  int m = (int)floorf(tap_ph) % code_len;
-  if (m < 0) m += code_len;
-  return code[m];
-}
-
-// one sample's contribution to the 2T tap sums: carrier wipeoff at the
-// phase ramp ph0 + dstep * k, replica at the code phase rem + step * k
-// (both ramps single-rounded multiply-adds, as the plain version rounds
-// them)
-template <int T, bool INTERP>
-__device__ __forceinline__ void accumulate_sample(
-    const float2* __restrict__ window, const float* code, const Params& P,
-    const float* offs, int pos, int k, float rem, float step, float ph0,
-    float dstep, float* acc_re, float* acc_im) {
-  const int idx = pos + k;
-  const float2 x = (idx >= 0 && idx < P.window_len)
-                       ? window[idx] : make_float2(0.0f, 0.0f);
-  const float kf = (float)k;
-  float sw, cw;
-  sincosf(fmaf(dstep, kf, ph0), &sw, &cw);
-  const float wr = x.x * cw + x.y * sw;
-  const float wi = x.y * cw - x.x * sw;
-  const float cph = fmaf(step, kf, rem);
-#pragma unroll
-  for (int t = 0; t < T; ++t) {
-    const float v = replica<INTERP>(code, P.code_len, cph + offs[t], step);
-    acc_re[t] += wr * v;
-    acc_im[t] += wi * v;
-  }
-}
-
-// ---- the staged per-sample step (K1 and K2) ----------------------------
+// ---- the staged per-sample step ------------------------------------------
 
 // The code index of a tap phase: the tap phases of one period lie within a
 // few chips of [0, code_len), so one conditional add or subtract gives what
@@ -418,10 +374,10 @@ struct Geo {
   float rem, step, inv_step, ph0, dstep;
 };
 
-template <int T>
-__device__ __forceinline__ Geo geo_of(const State<T>& s, const Params& P) {
+template <class S>
+__device__ __forceinline__ Geo geo_of(const S& s, const Params& P) {
   Geo g;
-  g.pos = s.pos;
+  g.pos = (int)s.pos;
   g.n = (int)s.n;
   g.rem = s.rem;
   g.step = s.code_step;
@@ -431,9 +387,10 @@ __device__ __forceinline__ Geo geo_of(const State<T>& s, const Params& P) {
   return g;
 }
 
-// sample k of the period (already in registers): what accumulate_sample
-// adds, with sincos_reduced, replica_staged, and contraction allowed in
-// the wipeoff and the tap products; the two phase ramps stay single-rounded
+// sample k of the period (already in registers): carrier wipeoff at the
+// phase ramp ph0 + dstep * k (sincos_reduced), the soft replica at the code
+// phase rem + step * k (replica_staged), with contraction allowed in the
+// wipeoff and the tap products; the two phase ramps stay single-rounded
 // fmaf as the plain version rounds them
 template <int T, bool INTERP>
 __device__ __forceinline__ void accumulate_staged(
@@ -453,7 +410,7 @@ __device__ __forceinline__ void accumulate_staged(
   }
 }
 
-// ---- the shared-memory sample ring (K1 and K2) --------------------------
+// ---- the shared-memory sample ring (K1, K2, K4) -------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -505,9 +462,10 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 
 // How a CTA walks its slice of every period: the slice [lo, lo + width) of
 // the period's samples (K2: lo = 0 and width = n_max rounded up to the copy
-// alignment; K1: CTA r of R takes lo = r * width), cut into nch chunks of
-// `chunk` samples, each staged into one of two ring slots of slotw =
-// chunk + 2 samples (one more on each side for the 16-byte alignment).
+// alignment; K1 and K4: CTA r of R takes lo = r * width), cut into nch
+// chunks of `chunk` samples, each staged into one of two ring slots of
+// slotw = chunk + 2 samples (one more on each side for the 16-byte
+// alignment).
 // Chunk g of the stream (period g / nch) goes to slot g % 2.
 struct RingShape {
   int width, chunk, nch, slotw;
@@ -537,9 +495,9 @@ __device__ __forceinline__ int odd_alignment(const float2* window) {
 // its slot. The slot holds window[g0 .. g0 + slotw) with g0 = start rounded
 // down to 16 bytes. The 16-byte-aligned part inside the window comes by one
 // bulk copy; the lanes store the rest (the aligned edges, and zeros outside
-// the window, as accumulate_sample reads them). The slot's full barrier
-// expects 32 arrivals (one a lane) and the copy's bytes. Before reusing a
-// slot the warp waits until the consumer warps have released it.
+// the window). The slot's full barrier expects 32 arrivals (one a lane) and
+// the copy's bytes. Before reusing a slot the warp waits until the consumer
+// warps have released it.
 __device__ __forceinline__ void ring_produce(
     const float2* __restrict__ window, int window_len, float2* ring,
     uint64_t* full, uint64_t* empty, const RingShape& R, int g, int start,
@@ -619,6 +577,212 @@ __device__ __forceinline__ void ring_consume_period(
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
   }
+}
+
+// ---- the cluster mapping (K1 and K4) ------------------------------------
+
+constexpr int NCW = 8;                         // consumer warps
+constexpr int RING_THREADS = (NCW + 1) * 32;   // + the producer warp
+
+// One channel is a thread-block cluster of `ranks` CTAs (grid ranks * C).
+// CTA r takes samples [r * S, min((r + 1) * S, n)) of each period, S =
+// R.width, and stages its slice of the next period into its ring while its
+// 8 consumer warps run accumulate_staged on the current one. Each consumer
+// warp writes its tap partials into its CTA's shared memory, in a slot
+// chosen by the period's parity; then one cluster barrier; then warp 0 of
+// every CTA reads the ranks x 8 partials over distributed shared memory in
+// rank order (so every CTA gets the same bits), runs the loop closure
+// redundantly, and hands the next period's geometry to its CTA through one
+// __syncthreads; rank 0 stores the row. One cluster barrier and one CTA
+// barrier a period.
+//
+// The loop policy `Loop` (BlockedLoop in csrc/track_blocked.cu, SimpleLoop
+// in csrc/track_simple.cu) carries what differs between the trackers:
+//   Loop::T                        taps
+//   Loop::St                       the loop state (warp 0 of each CTA holds
+//                                  it), with pos, rem, dcode, phase, dop and
+//                                  the geometry fields delta, code_step, n
+//   Loop::advances(sc)             whether the channel's position moves on
+//                                  (the producer's next start)
+//   loop.load(st, sc, pos_in, c, P)   the channel's state from its scalars
+//   loop.close(st, P, taps, row)   the closure of one period; it writes the
+//                                  row's lanes unless row is null (the
+//                                  other lanes stay zero)
+template <class Loop, bool INTERP>
+__global__ void __launch_bounds__(RING_THREADS)
+cluster_track_kernel(const float2* __restrict__ window,
+                     const float* __restrict__ codes,
+                     const float* __restrict__ scalars,
+                     const int* __restrict__ pos_in,
+                     float* __restrict__ out, const Params P,
+                     const RingShape R, int ranks, const Loop loop) {
+  constexpr int T = Loop::T;
+  namespace cg = cooperative_groups;
+  // [2][slotw] ring slots, then [code_len] code table
+  extern __shared__ float4 smem4[];
+  float2* ring = reinterpret_cast<float2*>(smem4);
+  float* s_code = reinterpret_cast<float*>(ring + 2 * R.slotw);
+  __shared__ uint64_t full[2], empty[2];
+  __shared__ float s_part[2][NCW][2 * T];
+  __shared__ __align__(16) float s_row[LANES];
+  __shared__ Geo s_geo;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int c = blockIdx.x / ranks;
+  const int lo = rank * R.width;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const float* sc = scalars + (size_t)c * P.ns;
+
+  for (int i = tid; i < P.code_len; i += RING_THREADS)
+    s_code[i] = codes[(size_t)c * P.code_len + i];
+  for (int i = tid; i < LANES; i += RING_THREADS) s_row[i] = 0.0f;
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], NCW);
+    }
+    mbar_init_fence();
+  }
+  const bool en = Loop::advances(sc);
+
+  // warp 0 carries the loop state
+  typename Loop::St st;
+  if (warp == 0) {
+    loop.load(st, sc, pos_in, c, P);
+    period_geometry(st, P);
+    if (lane == 0) s_geo = geo_of(st, P);
+  }
+  __syncthreads();
+
+  float offs[T];
+#pragma unroll
+  for (int t = 0; t < T; ++t) offs[t] = P.offs[t];
+
+  int g_next = 0;
+  for (int it = 0; it < P.n_periods; ++it) {
+    const Geo g = s_geo;
+    const int len = min(max(g.n - lo, 0), R.width);
+    if (warp == NCW) {
+      g_next = ring_produce_period(window, P.window_len, ring, full, empty,
+                                   R, g_next, it, P.n_periods, lo, g.pos,
+                                   en ? g.pos + g.n : g.pos, lane);
+    } else {
+      float acc_re[T], acc_im[T];
+#pragma unroll
+      for (int t = 0; t < T; ++t) acc_re[t] = acc_im[t] = 0.0f;
+      ring_consume_period<T, INTERP>(window, ring, full, empty, R, s_code,
+                                     P.code_len, offs, g, it, lo, len, tid,
+                                     NCW * 32, lane, acc_re, acc_im);
+#pragma unroll
+      for (int t = 0; t < T; ++t) {
+        for (int o = 16; o > 0; o >>= 1) {
+          acc_re[t] += __shfl_down_sync(0xffffffffu, acc_re[t], o);
+          acc_im[t] += __shfl_down_sync(0xffffffffu, acc_im[t], o);
+        }
+        if (lane == 0) {
+          s_part[it & 1][warp][2 * t] = acc_re[t];
+          s_part[it & 1][warp][2 * t + 1] = acc_im[t];
+        }
+      }
+    }
+    cluster.sync();
+
+    if (warp == 0) {
+      // lane j < 2T adds tap j over the ranks, then the warps, in order
+      float v = 0.0f;
+      if (lane < 2 * T) {
+        for (int q = 0; q < ranks; ++q) {
+          const float* part = cluster.map_shared_rank(&s_part[it & 1][0][0], q);
+          for (int w = 0; w < NCW; ++w) v += part[w * 2 * T + lane];
+        }
+      }
+      float taps[2 * T];
+#pragma unroll
+      for (int j = 0; j < 2 * T; ++j)
+        taps[j] = __shfl_sync(0xffffffffu, v, j);
+      loop.close(st, P, taps, (rank == 0 && lane == 0) ? s_row : nullptr);
+      period_geometry(st, P);
+      if (lane == 0) s_geo = geo_of(st, P);
+      if (rank == 0) {
+        __syncwarp();
+        reinterpret_cast<float4*>(
+            out + ((size_t)c * P.n_periods + it) * LANES)[lane] =
+            reinterpret_cast<const float4*>(s_row)[lane];
+      }
+    }
+    __syncthreads();
+  }
+  // no CTA leaves while another may still read its partials
+  cluster.sync();
+}
+
+// The launch configuration of cluster_track_kernel<Loop, INTERP>: grid
+// c * ranks, clusters of `ranks`, the ring and a code_len-chip table in
+// dynamic shared memory (allowed past 48 KB here).
+template <class Loop, bool INTERP>
+cudaLaunchConfig_t cluster_config(int c, int ranks, const RingShape& R,
+                                  const Params& P, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr,
+                                  cudaError_t* err) {
+  const size_t smem = (size_t)2 * R.slotw * sizeof(float2)
+                      + (size_t)P.code_len * sizeof(float);
+  *err = cudaSuccess;
+  if (smem > 48 * 1024)
+    *err = cudaFuncSetAttribute(cluster_track_kernel<Loop, INTERP>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = ranks;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(c * ranks);
+  cfg.blockDim = dim3(RING_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <class Loop, bool INTERP>
+cudaError_t cluster_launch(const float2* window, const float* codes,
+                           const float* scalars, const int* pos, float* out,
+                           int c, int ranks, int width, const Params& P,
+                           const Loop& loop, cudaStream_t stream) {
+  const RingShape R = ring_shape(width);
+  cudaLaunchAttribute attr;
+  cudaError_t e;
+  const cudaLaunchConfig_t cfg =
+      cluster_config<Loop, INTERP>(c, ranks, R, P, stream, &attr, &e);
+  if (e != cudaSuccess) return e;
+  e = cudaLaunchKernelEx(&cfg, cluster_track_kernel<Loop, INTERP>, window,
+                         codes, scalars, pos, out, P, R, ranks, loop);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// How many clusters of `ranks` CTAs (slices of `width` samples, a
+// P.code_len-chip table) the card holds at once, into *n.
+template <class Loop, bool INTERP>
+cudaError_t cluster_max(int c, int ranks, int width, const Params& P,
+                        int* n) {
+  cudaLaunchAttribute attr;
+  cudaError_t e;
+  const cudaLaunchConfig_t cfg = cluster_config<Loop, INTERP>(
+      c, ranks, ring_shape(width), P, 0, &attr, &e);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveClusters(n, cluster_track_kernel<Loop, INTERP>,
+                                        &cfg);
+}
+
+// ranks a power of two <= 8, width even and ranks * width >= n_max
+inline bool valid_cluster_shape(int c, int ranks, int width, int n_max) {
+  return c > 0 && ranks >= 1 && ranks <= 8 && (ranks & (ranks - 1)) == 0
+         && width > 0 && width % COPY_ALIGN == 0
+         && (long long)ranks * width >= n_max;
 }
 
 }  // namespace

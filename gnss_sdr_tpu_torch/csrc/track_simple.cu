@@ -1,5 +1,6 @@
 // Simple fused K-period tracker (K4): the one-period CDMA loop of C
-// channels over K code periods in one launch, one CTA per channel.
+// channels over K code periods in one launch, a thread-block cluster of R
+// CTAs per channel.
 //
 // Replaces the TPU kernel gnss_sdr_tpu/ops/track_kernel.py,
 // make_fused_tracker (pallas_call at :407). It computes what that kernel
@@ -17,25 +18,22 @@
 // the bytes (C*K*n*8 B of stream) would take well under a microsecond per
 // period at 3.35 TB/s.
 //
-// What the design does about it: K1's mapping (csrc/track_blocked.cu), which
-// runs 6x faster than one warp per channel (K2) at C = 8 on the H100
-// (PERF.md). One CTA per
-// channel stays resident for all K periods with the channel's chip row in
-// shared memory (40 KB at 10230 chips); 256 threads stride over the
-// period's samples through the shared per-sample step (csrc/track_loop.cuh:
-// coalesced float2 reads at pos + k, sincosf wipeoff, the soft replica with
-// its two ramps as single-rounded fmaf), a warp-shuffle plus shared-memory
-// reduce feeds one thread, which runs K4's own closure in float32 in the
-// plain version's order and broadcasts the next period's geometry. Built
-// with -fmad=false so that the period-length rule rounds as written and the
-// period lengths and positions agree exactly with the plain version.
+// What the design does about it: K1's mapping, by running K1's kernel.
+// csrc/track_loop.cuh's cluster_track_kernel spreads each channel over a
+// thread-block cluster of R CTAs (R from ops/track_kernel_blocked.py::
+// cluster_shape, the occupancy query taken with K4's shared memory: the
+// ring and up to a 10230-chip table), each staging its slice of every
+// period through a shared-memory ring a period ahead and running the staged
+// per-sample step (comparison code wrap, reciprocal code step, reduced-range
+// __sincosf); one cluster barrier and a DSMEM gather in rank order a
+// period. This file supplies K4's loop policy: its state, its loader and
+// its closure close_simple, whose sums are written with
+// __fadd_rn/__fsub_rn/__fmul_rn so that it rounds as its plain version
+// does under FMA contraction (period lengths and positions stay exact).
 
 #include "track_loop.cuh"
 
 namespace {
-
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
 
 // one loop filter's float32 constants (ops/track_kernel.py::
 // _filter_constants): 4 bw, w0^2, 1.414 w0, w0^3, 1.1 w0 w0, 2.4 w0
@@ -63,20 +61,22 @@ __device__ __forceinline__ float filter_step(const Filter& F, float err,
                                              float& i2) {
   if (F.order == 1) return F.k1 * err;
   if (F.order == 2) {
-    i1 = i1 + F.w0sq * err * t_int;
-    return i1 + F.kp2 * err;
+    i1 = __fadd_rn(i1, F.w0sq * err * t_int);
+    return __fadd_rn(i1, F.kp2 * err);
   }
-  i2 = i2 + F.w0cu * err * t_int;
-  i1 = i1 + t_int * (i2 + F.k3a * err);
-  return i1 + F.k3b * err;
+  i2 = __fadd_rn(i2, F.w0cu * err * t_int);
+  i1 = __fadd_rn(i1, t_int * __fadd_rn(i2, F.k3a * err));
+  return __fadd_rn(i1, F.k3b * err);
 }
 
 __device__ __forceinline__ float tap_mag(const float* taps, int t) {
-  return sqrtf(taps[2 * t] * taps[2 * t] + taps[2 * t + 1] * taps[2 * t + 1]);
+  return sqrtf(__fadd_rn(__fmul_rn(taps[2 * t], taps[2 * t]),
+                         __fmul_rn(taps[2 * t + 1], taps[2 * t + 1])));
 }
 
 // discriminators, loop filters and NCO advance of one period
 // (track_kernel.py:307-382); writes lanes 0..2T-1 and 10-19 of the row
+// unless row is null
 template <int T>
 __device__ void close_simple(SimpleState& s, const Params& P,
                              const Filter& pll, const Filter& dll,
@@ -101,24 +101,29 @@ __device__ void close_simple(SimpleState& s, const Params& P,
   const float dll_out = filter_step(dll, code_err, t_int, s.dll_i1, s.dll_i2);
 
   // the phase advances at the Doppler in force during the period
-  float phase = s.phase + (TWO_PI * P.inv_fs) * s.dop * s.n;
-  phase = phase - TWO_PI * floorf(phase / TWO_PI);
-  const float dcode = pll_out * P.aid_ratio - dll_out;
+  float phase = __fadd_rn(s.phase, (TWO_PI * P.inv_fs) * s.dop * s.n);
+  phase = __fsub_rn(phase, __fmul_rn(TWO_PI, floorf(phase / TWO_PI)));
+  const float dcode = __fsub_rn(__fmul_rn(pll_out, P.aid_ratio), dll_out);
   const float rem = fmaxf(
-      s.rem + ((s.n - P.spcf) * s.code_step + P.c0 + P.spcf * s.delta), 0.0f);
+      __fadd_rn(s.rem,
+                __fadd_rn(__fadd_rn(__fmul_rn(__fsub_rn(s.n, P.spcf),
+                                              s.code_step), P.c0),
+                          __fmul_rn(P.spcf, s.delta))), 0.0f);
   const float pos = s.pos + s.n;
 
-  for (int j = 0; j < 2 * T; ++j) row[j] = taps[j];
-  row[LANE_N] = s.n;
-  row[LANE_DOPPLER] = pll_out;
-  row[LANE_DCODE] = dcode;
-  row[LANE_REM] = rem;
-  row[LANE_PHASE] = phase;
-  row[LANE_PLL_I1] = s.pll_i1;
-  row[LANE_DLL_I1] = s.dll_i1;
-  row[LANE_POS] = pos;
-  row[LANE_PLL_I2] = s.pll_i2;
-  row[LANE_DLL_I2] = s.dll_i2;
+  if (row != nullptr) {
+    for (int j = 0; j < 2 * T; ++j) row[j] = taps[j];
+    row[LANE_N] = s.n;
+    row[LANE_DOPPLER] = pll_out;
+    row[LANE_DCODE] = dcode;
+    row[LANE_REM] = rem;
+    row[LANE_PHASE] = phase;
+    row[LANE_PLL_I1] = s.pll_i1;
+    row[LANE_DLL_I1] = s.dll_i1;
+    row[LANE_POS] = pos;
+    row[LANE_PLL_I2] = s.pll_i2;
+    row[LANE_DLL_I2] = s.dll_i2;
+  }
 
   s.pos = pos;
   s.rem = rem;
@@ -127,124 +132,51 @@ __device__ void close_simple(SimpleState& s, const Params& P,
   s.dop = pll_out;
 }
 
-template <int T, bool INTERP>
-__global__ void __launch_bounds__(THREADS)
-track_simple_kernel(const float2* __restrict__ window,
-                    const float* __restrict__ codes,
-                    const float* __restrict__ scalars,
-                    float* __restrict__ out, const Params P, const Filter pll,
-                    const Filter dll) {
-  extern __shared__ float s_code[];          // [code_len]
-  __shared__ float s_red[WARPS][2 * T];
-  __shared__ float s_row[LANES];
-  __shared__ float s_geo[4];                 // rem, code_step, phase, dstep
-  __shared__ int s_pos, s_n;
-
-  const int c = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-
-  for (int i = tid; i < P.code_len; i += THREADS)
-    s_code[i] = codes[(size_t)c * P.code_len + i];
-  // lanes 20-127 (and 2T..9) stay zero
-  for (int i = tid; i < LANES; i += THREADS) s_row[i] = 0.0f;
-
-  SimpleState st;
-  if (tid == 0) {
-    // [pos, rem, dcode, phase, doppler, pll_i1, dll_i1, enabled, pll_i2,
-    //  dll_i2]; slot 7 is not read
-    const float* sc = scalars + (size_t)c * P.ns;
-    st.pos = sc[0];
-    st.rem = sc[1];
-    st.dcode = sc[2];
-    st.phase = sc[3];
-    st.dop = sc[4];
-    st.pll_i1 = sc[5];
-    st.dll_i1 = sc[6];
-    st.pll_i2 = sc[8];
-    st.dll_i2 = sc[9];
-    period_geometry(st, P);
-    s_pos = (int)st.pos;
-    s_n = (int)st.n;
-    s_geo[0] = st.rem;
-    s_geo[1] = st.code_step;
-    s_geo[2] = st.phase;
-    s_geo[3] = (TWO_PI * P.inv_fs) * st.dop;
+// K4's loop policy for cluster_track_kernel
+template <int NT>
+struct SimpleLoop {
+  static constexpr int T = NT;
+  using St = SimpleState;
+  Filter pll, dll;
+  // no enabled gating: every channel advances
+  __device__ static bool advances(const float*) { return true; }
+  // [pos, rem, dcode, phase, doppler, pll_i1, dll_i1, enabled, pll_i2,
+  //  dll_i2]; slot 7 is not read
+  __device__ void load(St& s, const float* sc, const int*, int,
+                       const Params&) const {
+    s.pos = sc[0];
+    s.rem = sc[1];
+    s.dcode = sc[2];
+    s.phase = sc[3];
+    s.dop = sc[4];
+    s.pll_i1 = sc[5];
+    s.dll_i1 = sc[6];
+    s.pll_i2 = sc[8];
+    s.dll_i2 = sc[9];
   }
-  __syncthreads();
-
-  float offs[T];
-#pragma unroll
-  for (int t = 0; t < T; ++t) offs[t] = P.offs[t];
-
-  for (int it = 0; it < P.n_periods; ++it) {
-    const int pos = s_pos, n = s_n;
-    const float rem = s_geo[0], step = s_geo[1];
-    const float ph0 = s_geo[2], dstep = s_geo[3];
-    float acc_re[T], acc_im[T];
-#pragma unroll
-    for (int t = 0; t < T; ++t) acc_re[t] = acc_im[t] = 0.0f;
-
-    for (int k = tid; k < n; k += THREADS)
-      accumulate_sample<T, INTERP>(window, s_code, P, offs, pos, k, rem, step,
-                                   ph0, dstep, acc_re, acc_im);
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      for (int o = 16; o > 0; o >>= 1) {
-        acc_re[t] += __shfl_down_sync(0xffffffffu, acc_re[t], o);
-        acc_im[t] += __shfl_down_sync(0xffffffffu, acc_im[t], o);
-      }
-      if (lane == 0) {
-        s_red[warp][2 * t] = acc_re[t];
-        s_red[warp][2 * t + 1] = acc_im[t];
-      }
-    }
-    __syncthreads();
-
-    if (tid == 0) {
-      float taps[2 * T];
-      for (int j = 0; j < 2 * T; ++j) {
-        float v = 0.0f;
-        for (int w = 0; w < WARPS; ++w) v += s_red[w][j];
-        taps[j] = v;
-      }
-      close_simple<T>(st, P, pll, dll, taps, s_row);
-      period_geometry(st, P);
-      s_pos = (int)st.pos;
-      s_n = (int)st.n;
-      s_geo[0] = st.rem;
-      s_geo[1] = st.code_step;
-      s_geo[2] = st.phase;
-      s_geo[3] = (TWO_PI * P.inv_fs) * st.dop;
-    }
-    __syncthreads();
-    if (tid < LANES)
-      out[((size_t)c * P.n_periods + it) * LANES + tid] = s_row[tid];
+  __device__ void close(St& s, const Params& P, const float* taps,
+                        float* row) const {
+    close_simple<NT>(s, P, pll, dll, taps, row);
   }
-}
-
-template <int T, bool INTERP>
-cudaError_t launch(const float2* window, const float* codes,
-                   const float* scalars, float* out, int c, const Params& P,
-                   const Filter& pll, const Filter& dll, cudaStream_t stream) {
-  const size_t smem = (size_t)P.code_len * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        track_simple_kernel<T, INTERP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  track_simple_kernel<T, INTERP><<<c, THREADS, smem, stream>>>(
-      window, codes, scalars, out, P, pll, dll);
-  return cudaGetLastError();
-}
+};
 
 template <int T>
 cudaError_t dispatch(bool interp, const float2* w, const float* cd,
-                     const float* sc, float* o, int c, const Params& P,
-                     const Filter& pll, const Filter& dll, cudaStream_t s) {
-  return interp ? launch<T, true>(w, cd, sc, o, c, P, pll, dll, s)
-                : launch<T, false>(w, cd, sc, o, c, P, pll, dll, s);
+                     const float* sc, float* o, int c, int ranks, int width,
+                     const Params& P, const Filter& pll, const Filter& dll,
+                     cudaStream_t s) {
+  const SimpleLoop<T> loop{pll, dll};
+  return interp ? cluster_launch<SimpleLoop<T>, true>(
+                      w, cd, sc, nullptr, o, c, ranks, width, P, loop, s)
+                : cluster_launch<SimpleLoop<T>, false>(
+                      w, cd, sc, nullptr, o, c, ranks, width, P, loop, s);
+}
+
+template <int T>
+cudaError_t max_clusters(bool interp, int c, int ranks, int width,
+                         const Params& P, int* n) {
+  return interp ? cluster_max<SimpleLoop<T>, true>(c, ranks, width, P, n)
+                : cluster_max<SimpleLoop<T>, false>(c, ranks, width, P, n);
 }
 
 }  // namespace
@@ -252,14 +184,18 @@ cudaError_t dispatch(bool interp, const float2* w, const float* cd,
 // window: float2 [window_len] (complex64); codes: f32 [C, code_len];
 // scalars: f32 [C, 10]; out: f32 [C, n_periods, 128]; params: host f32[32]
 // (ops/track_kernel.py::launch_simple): K1's layout in 0..7, tap offsets
-// in 8..12, PLL filter constants in 16..21, DLL filter constants in 22..27.
+// in 8..12, PLL filter constants in 16..21, DLL filter constants in 22..27;
+// ranks CTAs per channel (a power of two <= 8) each covering `width`
+// samples of a period (even, ranks * width >= n_max).
 extern "C" int gnss_track_simple(const void* window, int window_len,
                                  const void* codes, int code_len,
                                  const void* scalars, void* out, int c,
                                  int n_periods, int n_max, const void* params,
                                  int num_taps, int pll_order, int dll_order,
-                                 int interp_code, void* stream) {
-  if ((num_taps != 3 && num_taps != 5) || c <= 0)
+                                 int interp_code, int ranks, int width,
+                                 void* stream) {
+  if ((num_taps != 3 && num_taps != 5)
+      || !valid_cluster_shape(c, ranks, width, n_max))
     return (int)cudaErrorInvalidValue;
   const float* hp = static_cast<const float*>(params);
   const Params P = make_params(hp, num_taps, window_len, code_len, 10,
@@ -271,8 +207,27 @@ extern "C" int gnss_track_simple(const void* window, int window_len,
   const float* sc = static_cast<const float*>(scalars);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool interp = interp_code != 0;
   cudaError_t e = num_taps == 3
-      ? dispatch<3>(interp_code != 0, w, cd, sc, o, c, P, pll, dll, s)
-      : dispatch<5>(interp_code != 0, w, cd, sc, o, c, P, pll, dll, s);
+      ? dispatch<3>(interp, w, cd, sc, o, c, ranks, width, P, pll, dll, s)
+      : dispatch<5>(interp, w, cd, sc, o, c, ranks, width, P, pll, dll, s);
+  return (int)e;
+}
+
+// How many K4 clusters of `ranks` CTAs (slices of `width` samples, a
+// `code_len`-chip table, num_taps taps) the card holds at once, into *n.
+extern "C" int gnss_track_simple_max_clusters(int c, int code_len, int n_max,
+                                              int interp_code, int num_taps,
+                                              int ranks, int width, int* n) {
+  if ((num_taps != 3 && num_taps != 5)
+      || !valid_cluster_shape(c, ranks, width, n_max))
+    return (int)cudaErrorInvalidValue;
+  Params P = {};
+  P.code_len = code_len;
+  P.n_max = n_max;
+  const bool interp = interp_code != 0;
+  const cudaError_t e = num_taps == 3
+      ? max_clusters<3>(interp, c, ranks, width, P, n)
+      : max_clusters<5>(interp, c, ranks, width, P, n);
   return (int)e;
 }

@@ -5,10 +5,10 @@
   CTAs per channel (csrc/track_blocked.cu);
 - ``track_kernel.track_full``: the same loop and rows, one CTA per
   channel (csrc/track_full.cu);
-- ``correlator.correlator``: one period's multi-tap correlation
-  (csrc/correlator.cu);
+- ``correlator.correlator``: one period's multi-tap correlation, a
+  thread-block cluster of R CTAs per channel (csrc/correlator.cu);
 - ``track_kernel.track_simple``: K periods of the simple one-period CDMA
-  loop (T = 3 or 5, no enabled gating), one CTA per channel
+  loop (T = 3 or 5, no enabled gating) on K1's cluster kernel
   (csrc/track_simple.cu), driven by ``tools/kbench.py``.
 
 The primitive-cost probe P1 (csrc/probe.cu) is launched from

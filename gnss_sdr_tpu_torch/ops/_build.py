@@ -26,14 +26,13 @@ BUILD_ROOT = _PKG / "_build"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
-# per-source flags: K4's per-sample step and period-length rule must round
-# like its plain version, so nvcc may not contract a*b+c into an FMA there;
-# the probe's multiply-add chains round like their plain versions the same
-# way. K1 and K2 build with contraction on: the sums of their period
-# geometry and closure are written with __fadd_rn and friends
-# (csrc/track_loop.cuh), which round as written under any flag.
-FILE_FLAGS = {"track_simple.cu": ["-fmad=false"],
-              "probe.cu": ["-fmad=false"]}
+# per-source flags: the probe's multiply-add chains must round like their
+# plain versions, so nvcc may not contract a*b+c into an FMA there. The
+# trackers (K1, K2, K4) build with contraction on: the sums of their period
+# geometry and closures are written with __fadd_rn and friends
+# (csrc/track_loop.cuh, csrc/track_simple.cu), which round as written under
+# any flag.
+FILE_FLAGS = {"probe.cu": ["-fmad=false"]}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -169,6 +168,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         i,               # C
         p, i,            # tap offsets (host f32 [5]), T
         i, i,            # interp_code, track_pilot
+        i, i,            # CTAs per channel (cluster size), slice width
         p,               # stream
     ]
     lib.gnss_correlator.restype = i
@@ -180,9 +180,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i,         # C, K, n_max
         p, i,            # params (host f32 [32]), num_taps
         i, i, i,         # pll_order, dll_order, interp_code
+        i, i,            # CTAs per channel (cluster size), slice width
         p,               # stream
     ]
     lib.gnss_track_simple.restype = i
+    lib.gnss_track_simple_max_clusters.argtypes = [
+        i, i, i, i, i,   # C, code_len, n_max, interp_code, num_taps
+        i, i,            # cluster size, slice width
+        ctypes.POINTER(ctypes.c_int),   # out: clusters resident at once
+    ]
+    lib.gnss_track_simple_max_clusters.restype = i
     lib.gnss_probe.argtypes = [
         i,               # variant (tools/mosaic_probe.py VARIANTS)
         p,               # x (f32 [4096, 128])

@@ -7,7 +7,9 @@ one code period, with no loop closure. The eager tracking engine
 
 ``correlator`` launches the CUDA kernel ``csrc/correlator.cu`` for CUDA
 tensors and runs ``correlator_plain`` for CPU tensors; it never falls back
-from one to the other.
+from one to the other. On the card each channel is a thread-block cluster
+of R CTAs, each taking a slice of S samples of the period, with (R, S) from
+K1's rule ``cluster_shape`` on the card's SM count.
 
 Inputs: ``x`` complex64 [C, N] (the period's samples from each channel's
 start position), ``codes_q``/``dcodes_q`` float32 [C, Q, 128] zero-padded
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from gnss_sdr_tpu_torch.ops import _build
+from gnss_sdr_tpu_torch.ops.track_kernel_blocked import cluster_shape, sm_count
 
 LANES = 128
 MAX_TAPS = 5
@@ -108,10 +111,12 @@ def correlator_plain(x, codes_q, dcodes_q, scalars, tap_offsets, *,
         else:
             cm = chips((flat - 1) % code_len)
             cp = chips((flat + 1) % code_len)
+            # the ramps' widths as one reciprocal of the step, as the
+            # kernel applies them
             frac = tap_ph - fl
-            w = step[:, :, None]
-            ramp_in = torch.clamp(frac / w + 0.5, 0.0, 1.0)
-            ramp_out = torch.clamp((frac - 1.0) / w + 0.5, 0.0, 1.0)
+            inv = (1.0 / step)[:, :, None]
+            ramp_in = torch.clamp(frac * inv + 0.5, 0.0, 1.0)
+            ramp_out = torch.clamp((frac - 1.0) * inv + 0.5, 0.0, 1.0)
             ctap = cm + (c0 - cm) * ramp_in + (cp - c0) * ramp_out
         re = (wr[:, None, :] * ctap).sum(-1)
         im = (wi[:, None, :] * ctap).sum(-1)
@@ -148,20 +153,26 @@ def launch(x, codes_q, dcodes_q, scalars, tap_offsets, out, *,
            code_len: int, interp_code: bool = True,
            track_pilot: bool = False) -> None:
     """Launch K3 on checked CUDA inputs into ``out`` [C, 1, 128], on the
-    current stream, without synchronising."""
+    current stream, without synchronising; ``correlator.cluster`` keeps the
+    cluster size R of the last launch."""
     c, n = x.shape
+    dq = dcodes_q if track_pilot else codes_q
+    if codes_q.data_ptr() % 16 or dq.data_ptr() % 16:
+        raise ValueError("codes_q and dcodes_q must be 16-byte aligned")
+    r, width = cluster_shape(c, n, sm_count(x.device))
     lib = _build.library()
     offs = (ctypes.c_float * MAX_TAPS)(*tap_offsets)
-    dq = dcodes_q if track_pilot else codes_q
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.gnss_correlator(
             x.data_ptr(), n, codes_q.data_ptr(), dq.data_ptr(),
             codes_q.shape[1] * LANES, code_len, scalars.data_ptr(),
             out.data_ptr(), c, offs, len(tap_offsets), int(interp_code),
-            int(track_pilot), stream)
+            int(track_pilot), r, width, stream)
     _build.check(rc, "correlator")
+    correlator.cluster = r
     correlator.launches += 1
 
 
 correlator.launches = 0
+correlator.cluster = None

@@ -18,7 +18,9 @@ FDMA and T = 5 raise ``NotImplementedError``, as for K1.
 ``make_fused_tracker`` (``track_kernel.py:107-432``): K periods of the
 one-period CDMA loop (Costas PLL, NELP DLL at T = 3 or VEML at T = 5,
 loop filters of order 1-3 with bandwidths fixed at build time, the
-carrier-aided code NCO), one CTA per channel (``csrc/track_simple.cu``).
+carrier-aided code NCO), run by K1's kernel with K4's own loop state and
+closure (``csrc/track_simple.cu``): a thread-block cluster of R CTAs per
+channel, R from ``cluster_shape`` as for K1.
 Inputs: the complex64 window [W], the float32 chip table [C, L] (the
 TPU's qloop/window2 table layouts have no counterpart) and the float32
 scalar block [C, 10] ``[pos, rem, dcode, phase, doppler, pll_i1, dll_i1,
@@ -71,6 +73,7 @@ from gnss_sdr_tpu_torch.ops.track_kernel_blocked import (
     check_inputs,
     check_layout,
     launch_entry,
+    launch_shape,
     make_blocked_spec,
     period_geometry,
     tap_sums,
@@ -344,11 +347,24 @@ def track_simple(window, codes, scalars, spec: SimpleSpec) -> torch.Tensor:
     return out
 
 
+def simple_launch_shape(device: torch.device, c: int,
+                        spec: SimpleSpec) -> tuple[int, int]:
+    """K4's (R, S) on ``device``: K1's rule (``cluster_shape``), with the
+    occupancy query taken on K4's shared memory (the sample ring and its
+    ``code_len``-chip table) and tap count."""
+    return launch_shape(device, c, spec.n_max,
+                        "gnss_track_simple_max_clusters", c, spec.code_len,
+                        spec.n_max, int(spec.interp_code), spec.num_taps)
+
+
 def launch_simple(window, codes, scalars, spec: SimpleSpec,
                   out: torch.Tensor) -> None:
     """Launch K4 on checked CUDA inputs into ``out`` [C, K, 128], on the
-    current stream, without synchronising; raises if the launch fails."""
+    current stream, without synchronising; raises if the launch fails.
+    ``track_simple.cluster`` keeps the cluster size R of the last launch."""
     k = spec.constants()
+    c = scalars.shape[0]
+    r, width = simple_launch_shape(window.device, c, spec)
     # host float32[32]: K1's layout in 0..7 (inv_fs, nominal_step,
     # aid_ratio, -, -, -, c0, spcf), tap offsets in 8..12, then the PLL's
     # and the DLL's filter constants in 16..21 and 22..27
@@ -363,15 +379,17 @@ def launch_simple(window, codes, scalars, spec: SimpleSpec,
     with torch.cuda.device(window.device):
         stream = torch.cuda.current_stream(window.device).cuda_stream
         rc = fn(window.data_ptr(), window.shape[0], codes.data_ptr(),
-                spec.code_len, scalars.data_ptr(), out.data_ptr(),
-                scalars.shape[0], spec.n_periods, spec.n_max, hp,
-                spec.num_taps, spec.pll_order, spec.dll_order,
-                int(spec.interp_code), stream)
+                spec.code_len, scalars.data_ptr(), out.data_ptr(), c,
+                spec.n_periods, spec.n_max, hp, spec.num_taps,
+                spec.pll_order, spec.dll_order, int(spec.interp_code), r,
+                width, stream)
     _build.check(rc, "gnss_track_simple")
+    track_simple.cluster = r
     track_simple.launches += 1
 
 
 track_simple.launches = 0
+track_simple.cluster = None
 
 
 def fused_scalars_from_state(state, conf) -> torch.Tensor:

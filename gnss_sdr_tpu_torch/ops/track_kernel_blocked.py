@@ -253,16 +253,15 @@ def period_geometry(rem, dcode, inv_fs, nominal_step, c0, spcf, n_max: int):
 
 
 def tap_sums(window, codes, posi, n, rem, code_step, phase0, dstep, offs,
-             interp_code: bool, n_max: int,
-             reciprocal_step: bool = False) -> list:
+             interp_code: bool, n_max: int) -> list:
     """One period's tap sums [re_0, im_0, re_1, ...] per channel
-    (``csrc/track_loop.cuh::accumulate_sample``): the samples at
+    (``csrc/track_loop.cuh::accumulate_staged``): the samples at
     ``posi + k`` for k < n (zeros outside the window), wiped off at the
     carrier phase ``phase0 + dstep * k``, times the soft replica at the
     code phase ``rem + code_step * k + offs[t]``; both ramps rounded once.
-    With ``reciprocal_step`` the replica's ramp weight multiplies by
-    ``1 / code_step`` instead of dividing by it, as K1 and K2 do
-    (``accumulate_staged``)."""
+    The replica's ramp weight multiplies by ``1 / code_step``, computed once
+    a period, as the kernels do, where the TPU kernels divide by the step
+    per tap."""
     dev = window.device
     f32 = torch.float32
     w_len = window.shape[0]
@@ -293,9 +292,7 @@ def tap_sums(window, codes, posi, n, rem, code_step, phase0, dstep, offs,
             cur = torch.gather(codes, 1, m)
             prev = torch.gather(codes, 1, torch.where(m == 0, length - 1,
                                                       m - 1))
-            d = tap_ph - fl
-            d = d * inv_step if reciprocal_step else d / code_step[:, None]
-            wgt = torch.clamp(d + 0.5, 0.0, 1.0)
+            wgt = torch.clamp((tap_ph - fl) * inv_step + 0.5, 0.0, 1.0)
             v = prev + (cur - prev) * wgt
         else:
             m = wrap_code_index(torch.floor(tap_ph).to(torch.int64), length)
@@ -361,8 +358,7 @@ def track_blocked_plain(window, codes, scalars, pos,
                                               nominal_step, c0, spcf, n_max)
         ni = n.to(torch.int64)
         taps = tap_sums(window, codes, posi, n, rem, code_step, phase0,
-                        dphase_hz * doppler, offs, spec.interp_code, n_max,
-                        reciprocal_step=True)
+                        dphase_hz * doppler, offs, spec.interp_code, n_max)
         d_re, d_im = taps[2 * p], taps[2 * p + 1]
 
         # ---- coherent accumulation --------------------------------------
@@ -497,29 +493,42 @@ def launch(window, codes, scalars, pos, spec: BlockedSpec,
     """Launch K1 on checked CUDA inputs into ``out`` [C, K, 128], on the
     current stream, without synchronising; ``track_blocked.cluster`` keeps
     the cluster size R of the last launch."""
-    sms = torch.cuda.get_device_properties(
-        window.device).multi_processor_count
-    r, width = cluster_shape(
-        scalars.shape[0], spec.n_max, sms,
-        functools.partial(_max_clusters, scalars.shape[0], spec.code_len,
-                          spec.n_max, spec.interp_code, window.device.index))
+    c = scalars.shape[0]
+    r, width = launch_shape(window.device, c, spec.n_max,
+                            "gnss_track_blocked_max_clusters", c,
+                            spec.code_len, spec.n_max, int(spec.interp_code))
     launch_entry("gnss_track_blocked", window, codes, scalars, pos, spec, out,
                  r, width)
     track_blocked.cluster = r
     track_blocked.launches += 1
 
 
-@functools.lru_cache(maxsize=64)
-def _max_clusters(c: int, code_len: int, n_max: int, interp: bool,
-                  device: int | None, r: int, width: int) -> int:
-    """The card's count of K1 clusters of ``r`` CTAs resident at once
-    (``cudaOccupancyMaxActiveClusters``)."""
+@functools.lru_cache(maxsize=16)
+def sm_count(device: torch.device) -> int:
+    """The multiprocessor count of a CUDA device (132 on an H100 SXM)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=128)
+def _max_clusters(entry: str, device: torch.device, *args: int) -> int:
+    """The card's count of clusters resident at once, as the C entry point
+    ``entry`` answers it for ``args`` (``cudaOccupancyMaxActiveClusters``)."""
     n = ctypes.c_int(0)
     with torch.cuda.device(device):
-        rc = _build.library().gnss_track_blocked_max_clusters(
-            c, code_len, n_max, int(interp), r, width, ctypes.byref(n))
-    _build.check(rc, "gnss_track_blocked_max_clusters")
+        rc = getattr(_build.library(), entry)(*args, ctypes.byref(n))
+    _build.check(rc, entry)
     return n.value
+
+
+def launch_shape(device: torch.device, c: int, n_max: int, entry: str,
+                 *query: int) -> tuple[int, int]:
+    """The (R, S) that a cluster tracker (K1, K4) launches with on
+    ``device``: ``cluster_shape`` on the card's SM count, asking the
+    occupancy entry point ``entry`` (with ``query``, then R and S) whether
+    the C clusters fit at once."""
+    return cluster_shape(
+        c, n_max, sm_count(device),
+        lambda r, s: _max_clusters(entry, device, *query, r, s))
 
 
 def launch_entry(entry: str, window, codes, scalars, pos,

@@ -1,4 +1,4 @@
-"""What nvcc made of the fused trackers: registers, stack, spills and SASS.
+"""What nvcc made of the tracking kernels: registers, stack, spills, SASS.
 
 Builds the kernel library (``ops/_build.py``), reads each entry
 function's registers, stack frame and spill bytes from the ``-Xptxas -v``
@@ -6,8 +6,11 @@ build log, disassembles the library with ``cuobjdump -sass`` and, for each
 kernel whose mangled name contains one of the given substrings, counts its
 instructions by opcode, overall and inside each loop (a range closed by a
 backward branch; ``depth`` counts the loops around it): the per-sample
-loop is one of those. Writes the full SASS to ``--out`` and prints one
-JSON line per kernel. Needs ``nvcc`` and ``cuobjdump``, no card.
+loop is one of those. By default it reports K1 and K4 (the cluster kernel
+``cluster_track_kernel`` with ``BlockedLoop`` and ``SimpleLoop``), K2
+(``track_full_kernel``) and K3 (``correlator_kernel``). Writes the full
+SASS to ``--out`` and prints one JSON line per kernel. Needs ``nvcc`` and
+``cuobjdump``, no card.
 
     python -m gnss_sdr_tpu_torch.tools.sass_report [--out DIR] [name ...]
 """
@@ -24,7 +27,8 @@ from pathlib import Path
 
 from gnss_sdr_tpu_torch.ops import _build
 
-DEFAULT_NAMES = ("track_blocked_kernel", "track_full_kernel")
+DEFAULT_NAMES = ("BlockedLoop", "track_full_kernel", "SimpleLoop",
+                 "correlator_kernel")
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                     r"([A-Z][A-Z0-9_.]*)(.*?);")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")

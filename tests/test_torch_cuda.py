@@ -17,14 +17,15 @@ from gnss_sdr_tpu_torch.ops.correlator import pack_code_table
 from gnss_sdr_tpu_torch.tools import mosaic_probe as p1
 
 from torch_cases import (
-    FS,
     TAPS,
+    TAPS5,
     assert_rows_close,
     correlator_inputs,
     correlator_rel_err,
     fused_noise_case,
+    run_simple,
     run_tracker,
-    tracker_inputs,
+    simple_noise_case,
 )
 
 torch.set_num_threads(2)
@@ -96,56 +97,79 @@ def test_track_full_kernel_matches_plain_cuda(cuda, C, interp):
         assert np.all(o_k[ch, :, 17] == scal[ch, 0])
 
 
+# K3 at every cluster size (R = 8, 8, 4, 1 at C = 1, 8, 33, 140 on an H100
+# SXM), T = 3 and 5, then the nearest-chip replica, the data prompt, rows of
+# an odd length (not 16-byte aligned: the float2 loads) and a 10230-chip
+# code: (C, T, interp, pilot, N, L)
+CORR_CASES = ([(c, t, True, False, 2688, 1023) for c in (1, 8, 33, 140)
+               for t in (3, 5)]
+              + [(8, 3, False, False, 2688, 1023),
+                 (8, 5, True, True, 2688, 1023),
+                 (8, 3, True, False, 2601, 1023),
+                 (8, 3, True, True, 26112, 10230)])
+CORR_IDS = ([f"C{c}_T{t}" for c in (1, 8, 33, 140) for t in (3, 5)]
+            + ["nearest_chip", "data_prompt_t5", "odd_rows", "code_10230"])
+
+
 @pytest.mark.cuda
-def test_correlator_kernel_matches_plain_cuda(cuda):
-    C, N, L = 8, 2688, 1023
-    codes, x, sc = correlator_inputs(C, N, L, 2602, 0)
-    cq = torch.as_tensor(pack_code_table(codes), device=cuda)
-    args = (torch.as_tensor(x, device=cuda), cq, cq,
-            torch.as_tensor(sc, device=cuda), TAPS)
+@pytest.mark.parametrize("C,T,interp,pilot,N,L", CORR_CASES, ids=CORR_IDS)
+def test_correlator_kernel_matches_plain_cuda(cuda, C, T, interp, pilot, N,
+                                              L):
+    """K3 against its plain version within 2e-3 (the JAX test's measure),
+    zeros past the 2T (+2) sums; launched with the cluster size of
+    ``cluster_shape``."""
+    taps = TAPS if T == 3 else TAPS5
+    codes, x, sc = correlator_inputs(C, N, L, N - 86, 0)
+    dcodes = -codes[:, ::-1].copy()
+    args = (torch.as_tensor(x, device=cuda),
+            torch.as_tensor(pack_code_table(codes), device=cuda),
+            torch.as_tensor(pack_code_table(dcodes), device=cuda),
+            torch.as_tensor(sc, device=cuda), taps)
+    kw = dict(code_len=L, interp_code=interp, track_pilot=pilot)
     before = k3.correlator.launches
-    got = k3.correlator(*args, code_len=L).cpu().numpy()
+    got = k3.correlator(*args, **kw).cpu().numpy()
     assert k3.correlator.launches == before + 1
-    ref = k3.correlator_plain(*args, code_len=L).cpu().numpy()
-    assert correlator_rel_err(got, ref, 3) < 2e-3
-    assert np.all(got[:, 0, 6:] == 0.0)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert k3.correlator.cluster == k1.cluster_shape(C, N, sms)[0]
+    ref = k3.correlator_plain(*args, **kw).cpu().numpy()
+    nt = T + 1 if pilot else T
+    assert correlator_rel_err(got, ref, nt) < 2e-3
+    assert np.all(got[:, 0, 2 * nt:] == 0.0)
+
+
+# K4 on the noise window at every cluster size of K1's rule, T = 3 (NELP)
+# and 5 (VEML), both replica forms, and one 10230-chip code: (C, T, interp,
+# L)
+SIMPLE_CASES = ([(c, t, i, 1023) for c in (1, 8, 33, 140) for t in (3, 5)
+                 for i in (True, False)] + [(8, 3, True, 10230)])
+SIMPLE_IDS = [f"C{c}_T{t}_{'interp' if i else 'nointerp'}_L{n}"
+              for c, t, i, n in SIMPLE_CASES]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("taps,orders,disable", [
-    (TAPS, (2, 2), None),
-    ([-0.5, -0.25, 0.0, 0.25, 0.5], (3, 3), None),
-    (TAPS, (3, 2), 3),
-], ids=["t3_order2", "t5_order3", "disabled_channel"])
-def test_track_simple_kernel_matches_plain_cuda(cuda, taps, orders, disable):
-    """K4 against its plain version: 5e-5 relative over the first two
-    periods, 2e-3 over all, lanes 10 and 17 exact, lanes 20-127 zero."""
-    C, K, L = 8, 20, 1023
-    nmax = int(np.ceil(FS * L / 1.023e6)) + 2
-    spec = k2.make_simple_spec(
-        K, nmax, L, taps, fs=FS, code_rate_cps=1.023e6,
-        carrier_freq_hz=1575.42e6, pll_bw_hz=25.0, dll_bw_hz=2.0,
-        pll_order=orders[0], dll_order=orders[1])
-    codes, wr, wi, scal = tracker_inputs(C, K, L, nmax, 1, 1, 17)
-    scal = np.ascontiguousarray(scal[:, :10])
-    scal[:, 8] = 0.5
-    if disable is not None:
-        scal[disable, 7] = 0.0
-    window = torch.as_tensor((wr.ravel() + 1j * wi.ravel()).astype(
-        np.complex64), device=cuda)
-    args = (window, torch.as_tensor(codes, device=cuda),
-            torch.as_tensor(scal, device=cuda), spec)
+@pytest.mark.parametrize("C,T,interp,L", SIMPLE_CASES, ids=SIMPLE_IDS)
+def test_track_simple_kernel_matches_plain_cuda(cuda, C, T, interp, L):
+    """K4 against its plain version over two launches of K = 20: 5e-5
+    relative over the first two periods, 2e-3 over all, lanes 10 and 17
+    exact, the other lanes zero; disabled channels advance; launched with
+    the cluster size of ``cluster_shape``."""
+    spec, window, codes, scal, disabled = simple_noise_case(
+        C, interp, TAPS if T == 3 else TAPS5, k2.make_simple_spec, L)
     before = k2.track_simple.launches
-    o_k = k2.track_simple(*args).cpu().numpy()
+    o_k = run_simple(k2.track_simple, spec, window, codes, scal, 2, cuda)
     torch.cuda.synchronize()
-    assert k2.track_simple.launches == before + 1
-    o_p = k2.track_simple_plain(*args).cpu().numpy()
-    lanes = list(range(2 * len(taps))) + list(range(10, 20))
+    assert k2.track_simple.launches == before + 2
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert k2.track_simple.cluster == k1.cluster_shape(C, spec.n_max, sms)[0]
+    o_p = run_simple(k2.track_simple_plain, spec, window, codes, scal, 2,
+                     cuda)
+    lanes = list(range(2 * T)) + list(range(10, 20))
     assert_rows_close(o_p[:, :2], o_k[:, :2], tol=5e-5, lanes=lanes)
     assert_rows_close(o_p, o_k, tol=2e-3, lanes=lanes)
     assert np.all(o_k[:, :, 20:] == 0.0)
-    if disable is not None:
-        assert np.all(np.diff(o_k[disable, :, 17]) > 0)
+    assert np.all(o_k[:, :, 2 * T:10] == 0.0)
+    for ch in disabled:
+        assert np.all(np.diff(o_k[ch, :, 17]) > 0)
 
 
 @pytest.mark.cuda

@@ -32,7 +32,7 @@ from gnss_sdr_tpu_torch.ops import track_kernel as tk
 from gnss_sdr_tpu_torch.tracking import dll_pll as tdll
 from gnss_sdr_tpu_torch.tracking.conf import DllPllConf as TConf
 
-from torch_cases import FS, assert_rows_close
+from torch_cases import FS, assert_rows_close, run_simple, simple_carry
 
 torch.set_num_threads(2)
 
@@ -62,16 +62,6 @@ def simple_inputs(C, K, L, nmax, launches, seed):
     return codes, wr, wi, scal
 
 
-def simple_carry(scal, o):
-    """Next launch's scalars from the last row, as
-    tests/test_track_kernel.py:164-168 repacks them."""
-    last = o[:, -1, :]
-    return np.stack([
-        last[:, 17], last[:, 13], last[:, 12], last[:, 14], last[:, 11],
-        last[:, 15], last[:, 16], scal[:, 7], last[:, 18], last[:, 19],
-    ], axis=1).astype(np.float32)
-
-
 def run_jax(K, nmax, L, taps, codes, wr, wi, scal, launches, replica, **kw):
     jk = make_fused_tracker(K, nmax, L, len(taps),
                             np.asarray(taps, np.float32), replica=replica,
@@ -90,15 +80,9 @@ def run_jax(K, nmax, L, taps, codes, wr, wi, scal, launches, replica, **kw):
 
 
 def run_port(spec, codes, wr, wi, scal, launches):
-    window = torch.as_tensor((wr.ravel() + 1j * wi.ravel()).astype(
-        np.complex64))
-    cd = torch.as_tensor(codes)
-    outs, s = [], scal
-    for _ in range(launches):
-        o = tk.track_simple(window, cd, torch.as_tensor(s), spec).numpy()
-        outs.append(o)
-        s = simple_carry(s, o)
-    return np.concatenate(outs, axis=1)
+    window = (wr.ravel() + 1j * wi.ravel()).astype(np.complex64)
+    return run_simple(tk.track_simple, spec, window, codes, scal, launches,
+                      "cpu")
 
 
 def assert_simple_close(o_jax, o_port, num_taps):

@@ -1,18 +1,22 @@
-"""How K1 is spread over the card, the kernels' code-index wrap, and the
-readers of what nvcc made of them.
+"""How K1, K3 and K4 are spread over the card, the kernels' code-index
+wrap, and the readers of what nvcc made of them.
 
-CPU only, no JAX: ``cluster_shape`` picks K1's cluster size R and slice
-width S from the channel count, ``wrap_code_index`` is the comparison
-wrap that replaced ``%`` in the per-sample step of K1 and K2
+CPU only, no JAX: ``cluster_shape`` picks the cluster size R and slice
+width S from the channel count (K1 and K4 with their occupancy queries, K3
+from the rule alone), ``wrap_code_index`` is the comparison wrap that
+replaced ``%`` in the per-sample step of the kernels
 (``csrc/track_loop.cuh::wrap_index``), and ``tools/sass_report.py`` with
 ``_build.kernel_resources`` read the ptxas log and the SASS.
 """
+
+import math
 
 import numpy as np
 import pytest
 import torch
 
 from gnss_sdr_tpu_torch.ops import _build
+from gnss_sdr_tpu_torch.ops import track_kernel as k4
 from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
 from gnss_sdr_tpu_torch.tools import sass_report
 from gnss_sdr_tpu_torch.tracking.conf import DllPllConf
@@ -78,6 +82,62 @@ def test_cluster_shape_halves_until_the_clusters_fit():
     assert k1.cluster_shape(8, n_max, H100_SMS,
                             fits({8: 0, 4: 0, 2: 0})) == (1, 2602)
     assert [a[0] for a in asked] == [8, 4, 2]
+
+
+# K3's period lengths N: the JAX test's 2544, the eager engine's 2688 at
+# 2.6 Msps (2602 valid), an odd row length and a 10230-chip period
+@pytest.mark.parametrize("n", [2544, 2601, 2688, 26112])
+@pytest.mark.parametrize("c", [1, 8, 33, 67, 140])
+def test_correlator_slices_cover_the_period(c, n):
+    """CTA r of K3's cluster reads [r S, min((r + 1) S, N)) of the
+    period (``csrc/correlator.cu``): every sample once, every slice
+    starting on a 16-byte copy boundary."""
+    r, s = k1.cluster_shape(c, n, H100_SMS)
+    covered = np.zeros(n, np.int64)
+    for rank in range(r):
+        lo = rank * s
+        assert lo % k1.COPY_ALIGN == 0
+        covered[lo:lo + min(max(n - lo, 0), s)] += 1
+    assert np.all(covered == 1)
+    assert r == (8 if c <= 16 else 4 if c <= 33 else 1)
+
+
+@pytest.mark.parametrize("c,code_len,taps,fits,want", [
+    (8, 1023, 3, {}, 8),
+    (8, 10230, 5, {8: 7}, 4),
+    (33, 10230, 3, {4: 0, 2: 0}, 1),
+    (140, 1023, 5, {}, 1),
+], ids=["c8", "c8_long_code_halved", "c33_long_code_to_one", "c140"])
+def test_track_simple_cluster_follows_the_rule(monkeypatch, c, code_len,
+                                               taps, fits, want):
+    """K4 takes K1's rule, with the occupancy query asked of its own entry
+    point for its code length (the chip table in shared memory beside the
+    ring), replica form and tap count, at each R and slice width the rule
+    tries; an answer below C halves R."""
+    asked = []
+
+    def occupancy(entry, device, *args):
+        asked.append((entry, device, *args))
+        return fits.get(args[-2], c)
+
+    monkeypatch.setattr(k1, "sm_count", lambda device: H100_SMS)
+    monkeypatch.setattr(k1, "_max_clusters", occupancy)
+    n_max = _n_max(code_len)
+    spec = k4.make_simple_spec(
+        20, n_max, code_len, [0.0] * taps, fs=FS, code_rate_cps=1.023e6,
+        carrier_freq_hz=1575.42e6, pll_bw_hz=25.0, dll_bw_hz=2.0,
+        interp_code=False)
+    dev = torch.device("cpu")
+    r, s = k4.simple_launch_shape(dev, c, spec)
+    assert r == want
+    assert (r, s) == k1.cluster_shape(c, n_max, H100_SMS,
+                                      lambda r_, s_: fits.get(r_, c))
+    # every R the rule tried from its first choice down to R, R = 1 unasked
+    first = k1.cluster_shape(c, n_max, H100_SMS)[0]
+    tried = [q for q in (8, 4, 2) if max(r, 2) <= q <= first]
+    width = {q: 2 * math.ceil(math.ceil(n_max / q) / 2) for q in tried}
+    assert asked == [("gnss_track_simple_max_clusters", dev, c, code_len,
+                      n_max, 0, taps, q, width[q]) for q in tried]
 
 
 @pytest.mark.parametrize("code_len", [1023, 10230])

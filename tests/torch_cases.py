@@ -11,6 +11,7 @@ from gnss_sdr_tpu_torch.ops.slots import S_ACC0, S_POS
 
 FS = 2.6e6
 TAPS = [-0.25, 0.0, 0.25]
+TAPS5 = [-0.5, -0.25, 0.0, 0.25, 0.5]
 # two GPS channels of tests/test_fused_receiver.py's tracker setups
 C = 2
 DOPS = [1200.0, -2500.0]
@@ -64,6 +65,53 @@ def fused_noise_case(C, interp, spec_fn, seed=11):
     if C >= 3:
         scal[C - 1, 0] = window.size - nmax // 2
     return spec, window, codes, scal, disabled
+
+
+def simple_noise_case(C, interp, taps, spec_fn, code_len=1023, seed=11):
+    """K4 inputs on ``fused_noise_case``'s noise window (``tracker_inputs``
+    at K = 20, two launches): random codes of ``code_len`` chips, positions
+    5 + 37 c, Dopplers from -2500 to 2500 Hz, PLL order 3 and DLL order 2 at
+    25 and 2 Hz, ``taps`` (3: NELP, 5: VEML); from C = 3 the last channel
+    disabled and placed so that its periods run past the end of the window
+    (K4 advances it all the same, reading zeros there), and from C = 5
+    channel 2 disabled where it is. Returns spec, window, codes, the [C, 10]
+    scalars and the disabled channels."""
+    K = 20
+    nmax = int(np.ceil(FS * code_len / 1.023e6)) + 2
+    spec = spec_fn(K, nmax, code_len, taps, fs=FS, code_rate_cps=1.023e6,
+                   carrier_freq_hz=1575.42e6, pll_bw_hz=25.0, dll_bw_hz=2.0,
+                   pll_order=3, dll_order=2, interp_code=interp)
+    codes, wr, wi, scal = tracker_inputs(C, K, code_len, nmax, 2, 2, seed)
+    window = (wr.ravel() + 1j * wi.ravel()).astype(np.complex64)
+    scal = np.ascontiguousarray(scal[:, :10])
+    disabled = ([2] if C >= 5 else []) + ([C - 1] if C >= 3 else [])
+    scal[disabled, 7] = 0.0
+    if C >= 3:
+        scal[C - 1, 0] = window.size - nmax // 2
+    return spec, window, codes, scal, disabled
+
+
+def simple_carry(scal, o):
+    """K4's next scalars from the last row, as
+    tests/test_track_kernel.py:164-168 repacks them."""
+    last = o[:, -1, :]
+    return np.stack([
+        last[:, 17], last[:, 13], last[:, 12], last[:, 14], last[:, 11],
+        last[:, 15], last[:, 16], scal[:, 7], last[:, 18], last[:, 19],
+    ], axis=1).astype(np.float32)
+
+
+def run_simple(fn, spec, window, codes, scal, launches, device):
+    """``launches`` back-to-back calls of K4 or its plain version; [C,
+    K*launches, 128] numpy rows."""
+    w = torch.as_tensor(window, device=device)
+    cd = torch.as_tensor(codes, device=device)
+    outs, s = [], scal
+    for _ in range(launches):
+        o = fn(w, cd, torch.as_tensor(s, device=device), spec).cpu().numpy()
+        outs.append(o)
+        s = simple_carry(s, o)
+    return np.concatenate(outs, axis=1)
 
 
 def carry(prev, o):
