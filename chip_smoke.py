@@ -13,7 +13,8 @@ K2, and checks every run's fixes against the position gates of
 plain version, the port's ``tools/kbench.py`` (K2 and K4 at C = 32,
 K = 200, with K1 timed at the same shape) and ``tools/mosaic_probe.py``
 (every P1 variant against its plain version, then ns per period over
-K = 2000). Every phase prints one JSON line; any failure exits nonzero.
+K = 2000, at the trackers' cluster size and at one CTA a channel). Every
+phase prints one JSON line; any failure exits nonzero.
 The last two lines are the kernel table and ``{"ok": true, "device":
 {...}}``. Needs a CUDA device and the repository's ``gnss_sdr_tpu_torch``
 package; imports no JAX.
@@ -54,6 +55,32 @@ P1_OPS_PER_ELEMENT = {"baseline": 2, "gather1": 2, "gather3": 6,
                       "qloop8": 2, "sincos": 2 + 2 * 20 + 1, "vec20": 42,
                       "matreduce": 2, "lanereduce8": 1 + 16, "staging": 1,
                       "narrow": 300, "out store": 1}
+# P1's loop-carried chain: period i + 1 starts from acc, so every period
+# costs at least its dependent float32 operations, 4 cycles each: the
+# body's own for one element (from acc to v), ceil(log2(elements consumed
+# a period)) adds of the period's sum, and the acc update (acc + sum *
+# 1e-20 + 1: 3 operations). Counted from the plain versions
+# (tools/mosaic_probe.py) and the kernel's forms (csrc/probe.cu):
+#   variant       body  consumed  sum  update  chain
+#   baseline         1      2816   12       3     16   v = src + acc
+#   gather1          1      2816   12       3     16   the index needs no acc
+#   gather3          3      2816   12       3     18   ((a+acc)+(b+acc))+(c+acc)
+#   qloop8           1      2816   12       3     16
+#   sincos           8      2816   12       3     23   add, mul, rint, 2 fma,
+#                                                       mul, MUFU, cos + sin
+#   vec20           41      2816   12       3     56   add, 20 x (mul, add)
+#   matreduce        6       128    7       3     16   add, a 22-row column: 5
+#   lanereduce8      9       176    8       3     20   add, scale, 128 lanes: 7
+#   staging          3      2816   12       3     18   r0: mul, add, convert
+#                                                       (the copy is a load)
+#   narrow         300         1    0       0    300   v itself, no acc
+#   out store        0         1    0       1      1   acc + 1; the row's
+#                                                       store is off the chain
+P1_CHAIN_OPS = {"baseline": 16, "gather1": 16, "gather3": 18, "qloop8": 16,
+                "sincos": 23, "vec20": 56, "matreduce": 16,
+                "lanereduce8": 20, "staging": 18, "narrow": 300,
+                "out store": 1}
+CYCLES_PER_OP = 4               # dependent float32 latency on the H100
 # lanes compared between fused trackers; period length and position exact
 CHECK_LANES = [0, 1, 2, 3, 10, 11, 12, 13, 14, 17, 20, 21, 22, 23,
                32, 33, 34, 35, 36, 37]
@@ -98,10 +125,22 @@ def cuda_ms(fn, reps: int, warm: bool = True, queue_ahead: bool = True,
     return start.elapsed_time(end) / reps
 
 
-def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
-    t_bytes = bytes_moved / CARD_BYTES_PER_S * 1e3
-    t_ops = ops / CARD_F32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def bound(bytes_moved: float, ops: float,
+          chain_ms: float = 0.0) -> tuple[float, str]:
+    """The least time in ms and what sets it: the bytes over the memory
+    rate, the operations over the float32 rate, or a loop-carried chain."""
+    times = {"bytes": bytes_moved / CARD_BYTES_PER_S * 1e3,
+             "operations": ops / CARD_F32_FLOPS * 1e3, "chain": chain_ms}
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (``nvidia-smi``'s clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout
+    return float(out.split()[0]) * 1e6
 
 
 def stream_bytes(rows: np.ndarray, window_len: int) -> int:
@@ -634,39 +673,63 @@ def kbench_phase(dev, kernels) -> dict:
 
 def probe_phase(dev, kernels) -> None:
     """Phase 10: every P1 variant against its plain version over K = 16
-    periods (per-channel sums at the first and the last period within
-    SUMS_TOL, output and out-store buffer exact), then the port's
-    tools/mosaic_probe.py with its launches counted: ns per period over
-    K = 2000, best of 2 x 30 launches, and each variant's margin over the
-    baseline."""
+    periods at every cluster size the probe accepts (R = 1, 2, 4, 8; the
+    trackers' rule gives 4 on an H100 SXM): per-channel sums at the first
+    and the last period within SUMS_TOL, output and out-store buffer exact.
+    Then the port's tools/mosaic_probe.py at the rule's R with its launches
+    counted: ns per period over K = 2000, best of 2 x 30 launches, and each
+    variant's margin over the baseline; the same at R = 1, and the baseline
+    at the other R. Each variant's K = 2000 run is held against its plain
+    version's too, and its bound counts the loop-carried chain."""
+    from gnss_sdr_tpu_torch.ops.track_kernel_blocked import sm_count
     from gnss_sdr_tpu_torch.tools import mosaic_probe as p1
 
     x = p1.probe_input(dev)
+    rule = p1.ranks_for(sm_count(dev))
+    sm_hz = sm_clock_hz()
     checks = {}
-    for v in p1.VARIANTS:
-        out, sums, big = p1.probe(v, x, 16)
-        w_out, w_sums, w_big = p1.probe_plain(v, x, 16)
-        err = p1.sums_err(sums, w_sums)
-        if not (err < p1.SUMS_TOL and torch.equal(out, w_out)
-                and (big is None or torch.equal(big, w_big))):
-            raise AssertionError(f"P1 {v} disagrees with its plain version: "
-                                 f"sums {err}")
-        checks[v] = dict(sums_err=err, max_abs_err=float(
-            (sums - w_sums).abs().max()))
+    for ranks in sorted({rule, 1, 2, 4, 8}):
+        for v in p1.VARIANTS:
+            out, sums, big = p1.probe(v, x, 16, ranks=ranks)
+            w_out, w_sums, w_big = p1.probe_plain(v, x, 16)
+            err = p1.sums_err(sums, w_sums)
+            name = f"{v} R={ranks}"
+            if not (err < p1.SUMS_TOL and torch.equal(out, w_out)
+                    and (big is None or torch.equal(big, w_big))):
+                raise AssertionError(f"P1 {name} disagrees with its "
+                                     f"plain version: sums {err}")
+            checks[name] = dict(sums_err=err, max_abs_err=float(
+                (sums - w_sums).abs().max()))
     emit("probe_vs_plain", K=16, tol=p1.SUMS_TOL, checks=checks)
 
     p1.probe.launches = 0
     ns = p1.run_all(device=dev)
     torch.cuda.synchronize()
-    launches = p1.probe.launches
+    launches, cluster = p1.probe.launches, p1.probe.cluster
     want = len(p1.VARIANTS) * (1 + 2 * p1.ITERS)
-    if launches != want:
-        raise AssertionError(f"P1: {launches} launches, want {want}")
+    if launches != want or cluster != rule:
+        raise AssertionError(f"P1: {launches} launches at R = {cluster}, "
+                             f"want {want} at R = {rule}")
+    ns1 = p1.run_all(device=dev, ranks=1)
+    baseline_ns = {rule: ns["baseline"], 1: ns1["baseline"]}
+    for r in (2, 4, 8):
+        if r not in baseline_ns:
+            baseline_ns[r] = p1.timed(f"{p1.LABELS['baseline']}, R={r}",
+                                      "baseline", ranks=r, device=dev)
 
     rows = []
     for v in p1.VARIANTS:
-        plain_ms = cuda_ms(lambda: p1.probe_plain(v, x, p1.K), 1, warm=False,
-                           queue_ahead=False)
+        out, sums, _ = p1.probe(v, x, p1.K)
+        ref = {}
+
+        def plain():
+            ref["w"] = p1.probe_plain(v, x, p1.K)
+
+        plain_ms = cuda_ms(plain, 1, warm=False, queue_ahead=False)
+        err = p1.sums_err(sums, ref["w"][1])
+        if not (err < p1.SUMS_TOL and torch.equal(out, ref["w"][0])):
+            raise AssertionError(f"P1 {v} over K = {p1.K} disagrees with "
+                                 f"its plain version: sums {err}")
         if v == "narrow":
             elems, nbytes = p1.C, p1.C * 4
         elif v == "out store":
@@ -676,24 +739,36 @@ def probe_phase(dev, kernels) -> None:
             elems, nbytes = p1.BR * p1.LANES, (p1.ROWS_P + 1) * p1.LANES * 4
         else:
             elems, nbytes = p1.BR * p1.LANES, p1.BR * p1.LANES * 4
+        chain_ms = p1.K * P1_CHAIN_OPS[v] * CYCLES_PER_OP / sm_hz * 1e3
         b_ms, b_by = bound(nbytes + 8 * p1.LANES * 4 + p1.C * 2 * 4,
-                           elems * P1_OPS_PER_ELEMENT[v] * p1.K)
+                           elems * P1_OPS_PER_ELEMENT[v] * p1.K, chain_ms)
         rows.append(dict(variant=v, ns_per_period=ns[v],
                          marginal_ns=ns[v] - ns["baseline"],
+                         ns_per_period_r1=ns1[v],
+                         marginal_ns_r1=ns1[v] - ns1["baseline"],
                          ms=ns[v] * p1.K * 1e-6, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, **checks[v]))
-    emit("probe", K=p1.K, iters=p1.ITERS, reps=2, launches=launches,
+                         bound_ms=b_ms, bound_by=b_by,
+                         chain_ops=P1_CHAIN_OPS[v],
+                         sums_err_k=err, max_abs_err_k=float(
+                             (sums - ref["w"][1]).abs().max()),
+                         **checks[f"{v} R={rule}"]))
+    emit("probe", K=p1.K, iters=p1.ITERS, reps=2, ranks=rule,
+         launches=launches, sm_clock_hz=sm_hz,
+         baseline_ns_by_ranks={str(r): baseline_ns[r]
+                               for r in sorted(baseline_ns)},
          variants=rows)
-    t_ms = sum(r["ms"] for r in rows)
-    by_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    by = {}
+    for r in rows:
+        by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"]
     kernels["probe"] = dict(
         launches=launches, max_abs_err=max(r["max_abs_err"] for r in rows),
-        ms=t_ms, plain_ms=sum(r["plain_ms"] for r in rows),
+        ms=sum(r["ms"] for r in rows),
+        plain_ms=sum(r["plain_ms"] for r in rows),
         bound_ms=sum(r["bound_ms"] for r in rows),
-        bound_by="operations" if by_ops >= sum(
-            r["bound_ms"] for r in rows) / 2 else "bytes",
+        bound_by=max(by, key=by.get),
         variants=[{k: r[k] for k in ("variant", "ns_per_period",
-                                     "marginal_ns", "ms", "plain_ms",
+                                     "marginal_ns", "ns_per_period_r1",
+                                     "marginal_ns_r1", "ms", "plain_ms",
                                      "bound_ms", "bound_by")}
                   for r in rows])
 
@@ -731,15 +806,17 @@ def main() -> int:
     _build.library()
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=_build.build_seconds)
-    # registers, stack frame and spills of K1, K2, K3 and K4 (ptxas -v),
-    # one entry per instantiation: K1 and K2 per replica form, K3 per tap
-    # count, replica form and data prompt, K4 per tap count and replica form
+    # registers, stack frame and spills of K1-K4 and P1 (ptxas -v), one
+    # entry per instantiation: K1 and K2 per replica form, K3 per tap count,
+    # replica form and data prompt, K4 per tap count and replica form, P1
+    # per variant and cluster size (R = 1, 2, 4, 8; narrow has one)
     found = _build.kernel_resources(_build.build_log)
     res = {}
     for kname, tag, want in (("track_blocked", "BlockedLoop", 2),
                              ("track_full", "track_full_kernel", 2),
                              ("correlator", "correlator_kernel", 8),
-                             ("track_simple", "SimpleLoop", 4)):
+                             ("track_simple", "SimpleLoop", 4),
+                             ("probe", "probe_", 41)):
         res[kname] = {n: r for n, r in found.items() if tag in n}
         if len(res[kname]) != want:
             raise AssertionError(f"build log names {len(res[kname])} "

@@ -196,6 +196,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p,         # out (f32 [8, 128]), sums (f32 [32, 2]),
                          # big (f32 [32, 200, 128], out store only)
         i,               # K
+        i,               # CTAs per channel (cluster size)
         p,               # stream
     ]
     lib.gnss_probe.restype = i

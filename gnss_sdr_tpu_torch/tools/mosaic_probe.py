@@ -17,10 +17,19 @@ runs ``probe_plain`` for CPU tensors. Both return the (8, 128) output,
 each channel's float32 sum(v) at the first and the last period [C, 2],
 and, for ``out store``, the (C, 200, 128) buffer.
 
+On the card one channel is a thread-block cluster of R CTAs, the
+trackers' mapping: R comes from their rule
+(``ops/track_kernel_blocked.py::cluster_shape``, 4 at C = 32 on 132 SMs),
+and ``ranks`` picks another power of two <= 8 (R = 1: one CTA with a CTA
+barrier). Each period's total is consumed as the trackers consume their
+taps: one cluster barrier and a gather of the R CTAs' partials over
+distributed shared memory. ``staging`` copies its rows by ``cp.async.bulk``
+on an mbarrier.
+
 One deliberate difference from the TPU harness: the (704, 128) tile does
-not fit one CTA's shared memory, so each channel is one CTA and the
-accumulator ``acc = acc + sum(v) * 1e-20 + 1`` is per channel where the
-TPU's couples all 704 rows. The harness output is ~K either way; the
+not fit one CTA's shared memory, so each channel is its own cluster and
+the accumulator ``acc = acc + sum(v) * 1e-20 + 1`` is per channel where
+the TPU's couples all 704 rows. The harness output is ~K either way; the
 per-channel sums are what the checks compare.
 
     python -m gnss_sdr_tpu_torch.tools.mosaic_probe
@@ -37,6 +46,7 @@ import torch
 
 from gnss_sdr_tpu_torch import resolve_device
 from gnss_sdr_tpu_torch.ops import _build
+from gnss_sdr_tpu_torch.ops.track_kernel_blocked import cluster_shape, sm_count
 
 K = 2000         # periods per launch
 C = 32           # channels
@@ -234,14 +244,29 @@ def sums_err(got: torch.Tensor, ref: torch.Tensor) -> float:
 
 def check_input(x: torch.Tensor) -> None:
     if (x.dtype != f32 or tuple(x.shape) != (X_ROWS, LANES)
-            or not x.is_contiguous()):
-        raise ValueError(f"x must be contiguous float32 [{X_ROWS}, {LANES}]")
+            or not x.is_contiguous() or x.data_ptr() % 16):
+        raise ValueError(f"x must be contiguous, 16-byte aligned float32 "
+                         f"[{X_ROWS}, {LANES}]")
 
 
-def probe(variant: str, x: torch.Tensor, k: int = K):
+def ranks_for(sms: int) -> int:
+    """CTAs per channel on a card of ``sms`` multiprocessors: the trackers'
+    rule for C channels of ROWS_P * LANES elements."""
+    return cluster_shape(C, ROWS_P * LANES, sms)[0]
+
+
+def check_ranks(ranks) -> None:
+    if ranks is not None and (not isinstance(ranks, int) or ranks < 1
+                              or ranks > 8 or ranks & (ranks - 1)):
+        raise ValueError(f"ranks must be a power of two <= 8, not {ranks!r}")
+
+
+def probe(variant: str, x: torch.Tensor, k: int = K, *, ranks=None):
     """P1's ``variant`` over ``k`` periods: the CUDA kernel for a CUDA
-    ``x``, ``probe_plain`` for a CPU one."""
+    ``x``, in clusters of ``ranks`` CTAs a channel (None: ``ranks_for``
+    the card), ``probe_plain`` for a CPU one."""
     check_input(x)
+    check_ranks(ranks)
     if variant not in VARIANT_ID:
         raise ValueError(f"unknown probe variant {variant!r}")
     if k < 1:
@@ -255,24 +280,30 @@ def probe(variant: str, x: torch.Tensor, k: int = K):
     big = None
     if variant == "out store":
         big = torch.zeros((C, OUT_ROWS, LANES), dtype=f32, device=x.device)
-    launch(variant, x, out, sums, big, k)
+    launch(variant, x, out, sums, big, k, ranks)
     return out, sums, big
 
 
-def launch(variant: str, x, out, sums, big, k: int) -> None:
+def launch(variant: str, x, out, sums, big, k: int, ranks=None) -> None:
     """Launch P1's ``variant`` on checked CUDA tensors, on the current
-    stream, without synchronising; raises if the launch fails."""
+    stream, without synchronising; raises if the launch fails. Records the
+    cluster size in ``probe.cluster``."""
+    check_ranks(ranks)
+    if ranks is None:
+        ranks = ranks_for(sm_count(x.device))
     fn = _build.library().gnss_probe
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(VARIANT_ID[variant], x.data_ptr(), out.data_ptr(),
                 sums.data_ptr(), 0 if big is None else big.data_ptr(), k,
-                stream)
+                ranks, stream)
     _build.check(rc, f"gnss_probe({variant})")
     probe.launches += 1
+    probe.cluster = ranks
 
 
 probe.launches = 0
+probe.cluster = None
 
 
 def probe_input(device) -> torch.Tensor:
@@ -282,12 +313,12 @@ def probe_input(device) -> torch.Tensor:
 
 
 def timed(name: str, variant: str, reps: int = 2, *, k: int = K,
-          iters: int = ITERS, device="cuda") -> float:
+          iters: int = ITERS, device="cuda", ranks=None) -> float:
     """Best over ``reps`` of ``iters`` launches, in ns per period, after one
     warm-up launch; on the card by CUDA events."""
     dev = resolve_device(device)
     x = probe_input(dev)
-    probe(variant, x, k)
+    probe(variant, x, k, ranks=ranks)
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.synchronize(dev)
@@ -298,14 +329,14 @@ def timed(name: str, variant: str, reps: int = 2, *, k: int = K,
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             for _ in range(iters):
-                probe(variant, x, k)
+                probe(variant, x, k, ranks=ranks)
             end.record()
             torch.cuda.synchronize(dev)
             dt = start.elapsed_time(end) * 1e-3
         else:
             t0 = time.perf_counter()
             for _ in range(iters):
-                probe(variant, x, k)
+                probe(variant, x, k, ranks=ranks)
             dt = time.perf_counter() - t0
         best = min(best, dt / (iters * k) * 1e9)
     print(f"{name:36s} {best:10.1f} ns/period", flush=True)
@@ -313,10 +344,11 @@ def timed(name: str, variant: str, reps: int = 2, *, k: int = K,
 
 
 def run_all(*, k: int = K, iters: int = ITERS, reps: int = 2,
-            device="cuda") -> dict:
+            device="cuda", ranks=None) -> dict:
     """Every variant through ``timed``: {variant: ns per period}."""
     dev = resolve_device(device)
-    return {v: timed(LABELS[v], v, reps, k=k, iters=iters, device=dev)
+    return {v: timed(LABELS[v], v, reps, k=k, iters=iters, device=dev,
+                     ranks=ranks)
             for v in VARIANTS}
 
 

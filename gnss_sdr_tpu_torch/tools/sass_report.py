@@ -6,10 +6,15 @@ build log, disassembles the library with ``cuobjdump -sass`` and, for each
 kernel whose mangled name contains one of the given substrings, counts its
 instructions by opcode, overall and inside each loop (a range closed by a
 backward branch; ``depth`` counts the loops around it): the per-sample
-loop is one of those. By default it reports K1 and K4 (the cluster kernel
+loop is one of those; ``period_loop`` is the instruction count of the
+outermost loop that holds a barrier (a CTA's ``BAR`` or a cluster's
+``UCGABAR``), the per-period loop of a kernel that consumes once a period.
+By default it reports K1 and K4 (the cluster kernel
 ``cluster_track_kernel`` with ``BlockedLoop`` and ``SimpleLoop``), K2
-(``track_full_kernel``) and K3 (``correlator_kernel``). Writes the full
-SASS to ``--out`` and prints one JSON line per kernel. Needs ``nvcc`` and
+(``track_full_kernel``), K3 (``correlator_kernel``) and every P1 kernel
+(``csrc/probe.cu``: ``probe_variant<V, R>``, ``probe_staging<R>``,
+``probe_outstore<R>``, ``probe_narrow``). Writes the full SASS to
+``--out`` and prints one JSON line per kernel. Needs ``nvcc`` and
 ``cuobjdump``, no card.
 
     python -m gnss_sdr_tpu_torch.tools.sass_report [--out DIR] [name ...]
@@ -28,7 +33,7 @@ from pathlib import Path
 from gnss_sdr_tpu_torch.ops import _build
 
 DEFAULT_NAMES = ("BlockedLoop", "track_full_kernel", "SimpleLoop",
-                 "correlator_kernel")
+                 "correlator_kernel", "probe_")
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                     r"([A-Z][A-Z0-9_.]*)(.*?);")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
@@ -95,6 +100,15 @@ def analyse(lines: list[str]) -> dict:
                 opcodes=dict(total.most_common()), loops=out_loops)
 
 
+def period_loop(loops: list[dict]) -> int | None:
+    """Instructions in the outermost loop that holds a barrier, or None."""
+    for lp in loops:
+        if lp["depth"] == 0 and any(op.startswith("BAR") or "CGABAR" in op
+                                    for op in lp["opcodes"]):
+            return lp["instructions"]
+    return None
+
+
 def report(names=DEFAULT_NAMES, out: Path | None = None) -> list[dict]:
     so = _build.build()
     res = _build.kernel_resources(_build.build_log)
@@ -108,8 +122,9 @@ def report(names=DEFAULT_NAMES, out: Path | None = None) -> list[dict]:
     for fname, lines in split_functions(sass).items():
         if not any(n in fname for n in names):
             continue
-        rows.append(dict(kernel=fname, **res.get(fname, {}),
-                         **analyse(lines)))
+        a = analyse(lines)
+        rows.append(dict(kernel=fname, **res.get(fname, {}), **a,
+                         period_loop=period_loop(a["loops"])))
     return rows
 
 

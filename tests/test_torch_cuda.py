@@ -17,18 +17,28 @@ from gnss_sdr_tpu_torch.ops.correlator import pack_code_table
 from gnss_sdr_tpu_torch.tools import mosaic_probe as p1
 
 from torch_cases import (
+    CHECK_LANES,
+    FS,
     TAPS,
     TAPS5,
     assert_rows_close,
+    assert_split_at_chip_edge,
+    carry,
     correlator_inputs,
     correlator_rel_err,
     fused_noise_case,
     run_simple,
     run_tracker,
+    simple_carry,
     simple_noise_case,
 )
 
 torch.set_num_threads(2)
+
+# the loop constants of torch_cases' noise-window cases
+FUSED_KW = dict(fs=FS, code_rate_cps=1.023e6, carrier_freq_hz=1575.42e6,
+                pll_order=3, dll_order=2)
+SIMPLE_KW = dict(FUSED_KW, pll_bw_hz=25.0, dll_bw_hz=2.0)
 
 
 @pytest.fixture
@@ -95,6 +105,60 @@ def test_track_full_kernel_matches_plain_cuda(cuda, C, interp):
     assert_rows_close(o_1, o_k, tol=2e-3)
     for ch in disabled:
         assert np.all(o_k[ch, :, 17] == scal[ch, 0])
+
+
+# seed 44's noise window at C = 33 (R = 4), where the hard replica meets a
+# chip edge: every channel of K1, K2 and K4 within 2e-3 of the plain
+# version, lanes 10 and 17 exact, except where the split is that edge
+# (torch_cases.assert_split_at_chip_edge). On the card K2 parts there at
+# channel 24 (T = 3) and K4 at channel 9 (T = 5); the JAX kernel sits on the
+# same edges (tests/test_torch_hard_replica_edge.py).
+SEED44_CASES = [(k, 3, i) for k in ("K1", "K2") for i in (True, False)] + [
+    ("K4", t, i) for t in (3, 5) for i in (True, False)]
+SEED44_IDS = [f"{k}_T{t}_{'interp' if i else 'nointerp'}"
+              for k, t, i in SEED44_CASES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,T,interp", SEED44_CASES, ids=SEED44_IDS)
+def test_seed44_noise_window_cuda(cuda, kernel, T, interp):
+    C = 33
+    if kernel == "K4":
+        taps = TAPS if T == 3 else TAPS5
+        spec, window, codes, scal, _ = simple_noise_case(
+            C, interp, taps, k2.make_simple_spec, seed=44)
+        o_k = run_simple(k2.track_simple, spec, window, codes, scal, 2, cuda)
+        o_p = run_simple(k2.track_simple_plain, spec, window, codes, scal, 2,
+                         cuda)
+        spec1 = k2.make_simple_spec(1, spec.n_max, spec.code_len, taps,
+                                    **SIMPLE_KW, interp_code=interp)
+
+        def step(ch, rows):
+            s = simple_carry(scal[ch:ch + 1], rows[None])
+            return run_simple(k2.track_simple_plain, spec1, window,
+                              codes[ch:ch + 1], s, 1, cuda)[0, 0]
+    else:
+        make = k1.make_blocked_spec if kernel == "K1" else k2.make_full_spec
+        spec, window, codes, scal, _ = fused_noise_case(C, interp, make, 44)
+        fn = k1.track_blocked if kernel == "K1" else k2.track_full
+        o_k = run_tracker(fn, spec, window, codes, scal, 2, cuda)
+        o_p = run_tracker(k1.track_blocked_plain, spec, window, codes, scal,
+                          2, cuda)
+        spec1 = k1.make_blocked_spec(1, spec.n_max, spec.code_len, TAPS,
+                                     **FUSED_KW, interp_code=interp)
+
+        def step(ch, rows):
+            s = carry(scal[ch:ch + 1], rows[None])
+            return run_tracker(k1.track_blocked_plain, spec1, window,
+                               codes[ch:ch + 1], s, 1, cuda)[0, 0]
+    lanes = (list(range(2 * T)) + list(range(10, 20)) if kernel == "K4"
+             else CHECK_LANES)
+    assert_rows_close(o_p[:, :2], o_k[:, :2], tol=5e-5, lanes=lanes)
+    split = assert_split_at_chip_edge(o_p, o_k, step, T,
+                                      2 * float(np.abs(window).max()))
+    assert interp is False or split == []
+    keep = [c for c in range(C) if c not in split]
+    assert_rows_close(o_p[keep], o_k[keep], tol=2e-3, lanes=lanes)
 
 
 # K3 at every cluster size (R = 8, 8, 4, 1 at C = 1, 8, 33, 140 on an H100
@@ -172,21 +236,41 @@ def test_track_simple_kernel_matches_plain_cuda(cuda, C, T, interp, L):
         assert np.all(np.diff(o_k[ch, :, 17]) > 0)
 
 
+# P1 at the trackers' cluster size (R = 4 at C = 32 on an H100 SXM) and at
+# every other R it accepts: 1 (one CTA of eight warps), 2 and 8 (64 warp
+# partials a period, two for each lane of the consume)
+PROBE_CASES = [(v, r) for r in (None, 1, 2, 4, 8) for v in p1.VARIANTS]
+PROBE_IDS = [f"{v.replace(' ', '_')}_R{r or 'rule'}" for v, r in PROBE_CASES]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", p1.VARIANTS)
-def test_probe_kernel_matches_plain_cuda(cuda, variant):
+@pytest.mark.parametrize("variant,ranks", PROBE_CASES, ids=PROBE_IDS)
+def test_probe_kernel_matches_plain_cuda(cuda, variant, ranks):
     """Each P1 variant against its plain version over K = 16 periods: the
     per-channel sums at the first and the last period within
     ``p1.SUMS_TOL`` (float32 sums of the same terms in another order), the
-    (8, 128) output and the out-store buffer exact."""
+    (8, 128) output and the out-store buffer exact; launched with the
+    cluster size asked for, or the rule's."""
     x = p1.probe_input(cuda)
     k = 16
     before = p1.probe.launches
-    out, sums, big = p1.probe(variant, x, k)
+    out, sums, big = p1.probe(variant, x, k, ranks=ranks)
     torch.cuda.synchronize()
     assert p1.probe.launches == before + 1
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert p1.probe.cluster == (ranks or p1.ranks_for(sms))
     w_out, w_sums, w_big = p1.probe_plain(variant, x, k)
     assert p1.sums_err(sums, w_sums) < p1.SUMS_TOL
     assert torch.equal(out, w_out)
     if variant == "out store":
         assert torch.equal(big, w_big)
+
+
+@pytest.mark.cuda
+def test_probe_rejects_cluster_size_cuda(cuda):
+    x = p1.probe_input(cuda)
+    before = p1.probe.launches
+    for bad in (3, 16, 0):
+        with pytest.raises(ValueError):
+            p1.probe("baseline", x, 4, ranks=bad)
+    assert p1.probe.launches == before

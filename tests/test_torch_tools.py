@@ -31,6 +31,9 @@ from tools import mosaic_probe as jprobe  # noqa: E402
 
 from gnss_sdr_tpu.codes.gps_l1_ca import gps_l1_ca_code_table  # noqa: E402
 from gnss_sdr_tpu.ops.correlator import pack_code_table  # noqa: E402
+from gnss_sdr_tpu_torch.ops.track_kernel_blocked import (  # noqa: E402
+    cluster_shape,
+)
 from gnss_sdr_tpu_torch.tools import kbench  # noqa: E402
 from gnss_sdr_tpu_torch.tools import mosaic_probe as probe  # noqa: E402
 
@@ -181,6 +184,22 @@ def test_probe_rejects():
         probe.probe("matmul", tile(), 2)
     with pytest.raises(ValueError):
         probe.probe("baseline", torch.zeros((704, 128)), 2)
+
+
+def test_probe_cluster_size():
+    """P1 launches on the trackers' mapping: by default R = cluster_shape's
+    R for C = 32 channels of 22 x 128 elements, 4 on 132 SMs; an explicit R
+    must be a power of two <= 8, on any device. On the CPU every valid
+    choice runs the plain version."""
+    assert probe.ranks_for(132) == cluster_shape(32, 2816, 132)[0] == 4
+    x = tile()
+    for bad in (3, 6, 16, 0):
+        with pytest.raises(ValueError):
+            probe.probe("baseline", x, 2, ranks=bad)
+    want = probe.probe_plain("staging", x, 2)
+    for r in (1, 2, 4, 8):
+        got = probe.probe("staging", x, 2, ranks=r)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_probe_timed_on_cpu():

@@ -185,3 +185,15 @@ def test_sass_report_finds_the_loops():
              opcodes={"BRA": 2, "MUFU.SIN": 1, "FFMA": 1}),
         dict(start="0x20", end="0x30", depth=1, instructions=2,
              opcodes={"FFMA": 1, "BRA": 1})]
+
+
+def test_sass_report_period_loop():
+    """The period loop is the outermost loop with a CTA or cluster barrier."""
+    loops = [dict(depth=0, instructions=9, opcodes={"LDG.E.128": 2}),
+             dict(depth=0, instructions=40, opcodes={"UCGABAR_ARV": 1}),
+             dict(depth=1, instructions=12, opcodes={"BAR.SYNC": 1})]
+    assert sass_report.period_loop(loops) == 40
+    assert sass_report.period_loop(loops[2:]) is None
+    assert sass_report.period_loop(
+        [dict(depth=0, instructions=7, opcodes={"BAR.SYNC.DEFER_BLOCKING": 1})]
+    ) == 7

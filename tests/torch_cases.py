@@ -171,6 +171,40 @@ def assert_rows_close(o1, o2, tol=5e-5, exact=True, lanes=CHECK_LANES):
             np.testing.assert_array_equal(o1[:, :, ln], o2[:, :, ln])
 
 
+def assert_split_at_chip_edge(ref, got, step, taps, weight, tol=2e-3):
+    """Rows ``got`` of a fused tracker against ``ref``, its plain version's:
+    lanes 10 and 17 equal; a channel whose taps part by more than ``tol``
+    (relative to each lane's largest value) must part at the hard
+    replica's chip edge. That is, at its first such period k: the states
+    before it agree within float32 rounding (Doppler, code rate and phase
+    within 1e-5, the remnant within 4 ulps); at most 4 tap lanes part,
+    none by more than ``weight`` (the most one sample can move a tap: twice
+    the window's largest magnitude); and one period of the plain version
+    from each state, ``step(channel, rows[:k])``, gives that side's taps
+    (tests/test_torch_hard_replica_edge.py). Returns the channels split
+    so."""
+    for ln in EXACT_LANES:
+        np.testing.assert_array_equal(ref[:, :, ln], got[:, :, ln])
+    scale = np.maximum(np.abs(ref[:, :, :2 * taps]).max(axis=(0, 1)), 1e-6)
+    rel = (np.abs(ref[:, :, :2 * taps] - got[:, :, :2 * taps])
+           / scale).max(axis=2)
+    split = [int(c) for c in np.nonzero((rel > tol).any(axis=1))[0]]
+    for ch in split:
+        k = int(np.argmax(rel[ch] > tol))
+        assert k >= 1, (ch, k)
+        np.testing.assert_allclose(got[ch, k - 1, 11:15], ref[ch, k - 1, 11:15],
+                                   rtol=1e-5, atol=1e-6)
+        rem = ref[ch, k - 1, 13]
+        assert abs(got[ch, k - 1, 13] - rem) <= 4 * np.spacing(abs(rem)), ch
+        gap = np.abs(ref[ch, k, :2 * taps] - got[ch, k, :2 * taps])
+        assert np.sum(gap > 1e-3) <= 4 and gap.max() <= weight, (ch, gap)
+        for rows in (ref, got):
+            again = step(ch, rows[ch, :k])[:2 * taps]
+            np.testing.assert_allclose(again, rows[ch, k, :2 * taps],
+                                       rtol=0, atol=5e-5 * scale.max())
+    return split
+
+
 def correlator_inputs(C, N, L, n_valid, seed):
     """The case of tests/test_pallas_correlator.py: random samples, chips
     and NCO scalars."""
