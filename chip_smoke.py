@@ -1,23 +1,30 @@
-"""Run the PyTorch port of the GPS L1 C/A receiver on one CUDA card.
+"""Run the PyTorch port of the receiver on one CUDA card.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``gnss_sdr_tpu_torch/csrc/``, holds
 each against its plain PyTorch version on the card, drives the three
 tracking engines (eager through the correlator K3, fused through K1 and
-through K2) over the same blocks, runs the receiver through K1 and the
-.conf/CLI entry point (``gnss_sdr_tpu_torch.main``) from an ``ibyte``
-capture through K1 and, under ``GNSS_SDR_TPU_FUSED=perchannel``, through
-K2, and checks every run's fixes against the position gates of
+through K2) over the same blocks, runs the GPS L1 C/A receiver through K1
+and the .conf/CLI entry point (``gnss_sdr_tpu_torch.main``) from an
+``ibyte`` capture through K1 and, under ``GNSS_SDR_TPU_FUSED=perchannel``,
+through K2, and checks every run's fixes against the position gates of
 ``tests/test_position.py``. Then the kernel-bench path: K4 against its
 plain version, the port's ``tools/kbench.py`` (K2 and K4 at C = 32,
 K = 200, with K1 timed at the same shape) and ``tools/mosaic_probe.py``
 (every P1 variant against its plain version, then ns per period over
-K = 2000, at the trackers' cluster size and at one CTA a channel). Every
-phase prints one JSON line; any failure exits nonzero.
-The last two lines are the kernel table and ``{"ok": true, "device":
-{...}}``. Needs a CUDA device and the repository's ``gnss_sdr_tpu_torch``
-package; imports no JAX.
+K = 2000, at the trackers' cluster size and at one CTA a channel). Then
+Galileo E1: K1 and K2 against their plain version at the E1 shape (T = 5,
+with and without the pilot), the E1-B receiver of ``tests/test_galileo.py``
+from Python and through the CLI with ``conf/galileo_e1_file.conf``'s keys
+(K1 and K2), the E1-B+C pilot receiver of ``tests/test_galileo_pilot.py``
+with the three engines held to each other on its capture, and ``bench.py``'s
+gal8 settings; each run held to its test's gates, and each kernel it ran
+held to its plain version on a block of the run's own inputs. Every phase
+prints one JSON line; any failure exits nonzero. The last two lines are
+the kernel table and ``{"ok": true, "device": {...}}``. Needs a CUDA
+device and the repository's ``gnss_sdr_tpu_torch`` package; imports no
+JAX.
 """
 
 from __future__ import annotations
@@ -81,10 +88,19 @@ P1_CHAIN_OPS = {"baseline": 16, "gather1": 16, "gather3": 18, "qloop8": 16,
                 "lanereduce8": 20, "staging": 18, "narrow": 300,
                 "out store": 1}
 CYCLES_PER_OP = 4               # dependent float32 latency on the H100
-# lanes compared between fused trackers; period length and position exact
+# lanes compared between fused trackers at T = 3
+# (tests/test_track_kernel_blocked.py); period length and position exact
 CHECK_LANES = [0, 1, 2, 3, 10, 11, 12, 13, 14, 17, 20, 21, 22, 23,
                32, 33, 34, 35, 36, 37]
 EXACT_LANES = [10, 17]
+
+
+def check_lanes(num_taps: int) -> list[int]:
+    """Lanes compared between fused trackers with ``num_taps`` taps (the
+    Galileo E1 cases): every tap, lanes 10-14, 17, 20 and 21, every tap
+    accumulator, and the data and secondary lanes 32-37."""
+    return (list(range(2 * num_taps)) + [10, 11, 12, 13, 14, 17, 20, 21]
+            + list(range(22, 22 + 2 * num_taps)) + list(range(32, 38)))
 
 
 def emit(phase: str, **fields) -> None:
@@ -188,12 +204,13 @@ def simple_lanes(num_taps: int) -> list[int]:
 
 
 def rows_rel_err(name: str, ref: np.ndarray, got: np.ndarray, K: int,
-                 lanes=CHECK_LANES) -> dict:
-    """Worst relative difference over the checked lanes, within 5e-5 over
-    the first 2 periods and 2e-3 over all K; period lengths and positions
-    equal."""
+                 lanes=CHECK_LANES, first_tol: float = 5e-5) -> dict:
+    """Worst relative difference over the checked lanes, within
+    ``first_tol`` over the first 2 periods (5e-5; 2e-4 for long codes, as
+    tests/test_track_kernel_blocked.py holds them) and 2e-3 over all K;
+    period lengths and positions equal."""
     rels = {}
-    for upto, tol in ((2, 5e-5), (K, 2e-3)):
+    for upto, tol in ((2, first_tol), (K, 2e-3)):
         worst = 0.0
         for ln in lanes:
             a, b = ref[:, :upto, ln], got[:, :upto, ln]
@@ -282,30 +299,42 @@ def assert_match(a, b, prompt_tol=5e-3, dop_tol=0.1) -> dict:
 def k3_phase(dev, tbl, kernels) -> None:
     """Phase 3: K3 against its plain version on random samples (N = 2688,
     2602 valid) at the eager engine's C = 8 (R = 8) and at C = 132 (R = 1),
-    T = 3, and at C = 8 with T = 5 and the data prompt; each timed over five
-    runs of 200 launches queued ahead of the device (the median is the
-    kernel's time) and, at C = 8, T = 3, five runs paced by the host. The
-    C = 8, T = 3 numbers go into ``kernels``."""
+    T = 3, and at C = 8 with T = 5 and the data prompt; then at the
+    Galileo E1-B+C eager engine's shape (C = 8, the 8184-unit sinBOC pilot
+    and data tables, N = 16128, 16000 valid at 4 Msps, T = 5 with the data
+    prompt). Each timed over five runs of 200 launches queued ahead of the
+    device (the median is the kernel's time) and, at C = 8, T = 3, five
+    runs paced by the host. The C = 8, T = 3 numbers go into ``kernels``
+    (K3 on the Galileo path is held on the E1-B+C run's own periods in
+    phase 14)."""
+    from gnss_sdr_tpu_torch.codes.galileo_e1 import (
+        galileo_e1b_sinboc_table,
+        galileo_e1c_sinboc_table,
+    )
     from gnss_sdr_tpu_torch.ops import correlator as k3
     from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
     from gnss_sdr_tpu_torch.ops.correlator import pack_code_table
     from gnss_sdr_tpu_torch.ops.slots import LANES
 
-    L, n_valid, npad = 1023, 2602, 2688
     sms = k1.sm_count(dev)
-    for C, taps, pilot in ((8, [-0.25, 0.0, 0.25], False),
-                           (132, [-0.25, 0.0, 0.25], False),
-                           (8, [-0.5, -0.25, 0.0, 0.25, 0.5], True)):
+    t3, t5 = [-0.25, 0.0, 0.25], [-0.5, -0.25, 0.0, 0.25, 0.5]
+    e1c, e1b = galileo_e1c_sinboc_table(), galileo_e1b_sinboc_table()
+    gps = (1023, tbl, -tbl[::-1], 2688, 2602, 1.023e6 / FS)
+    e1 = (E1_LEN, e1c, e1b, 16128, 16000, E1_RATE / E1_FS)
+    for C, taps, pilot, shape in (
+            (8, t3, False, gps), (132, t3, False, gps), (8, t5, True, gps),
+            (8, [-0.6, -0.25, 0.0, 0.25, 0.6], True, e1)):
+        L, ptbl, dtbl, npad, n_valid, step = shape
         rng = np.random.default_rng(0)
         x = torch.as_tensor((rng.normal(size=(C, npad))
                              + 1j * rng.normal(size=(C, npad))
                              ).astype(np.complex64), device=dev)
-        rows = np.arange(C) % len(tbl)
-        cq = torch.as_tensor(pack_code_table(tbl[rows]), device=dev)
-        dq = torch.as_tensor(pack_code_table(-tbl[rows[::-1]]), device=dev)
+        rows = np.arange(C) % len(ptbl)
+        cq = torch.as_tensor(pack_code_table(ptbl[rows]), device=dev)
+        dq = torch.as_tensor(pack_code_table(dtbl[rows]), device=dev)
         sc = np.zeros((C, 8), np.float32)
-        sc[:, 0] = rng.uniform(0, 1023, C)
-        sc[:, 1] = 1.023e6 / FS
+        sc[:, 0] = rng.uniform(0, L, C)
+        sc[:, 1] = step
         sc[:, 2] = rng.uniform(0, 6.28, C)
         sc[:, 3] = rng.uniform(-0.012, 0.012, C)
         sc[:, 4] = n_valid
@@ -329,7 +358,8 @@ def k3_phase(dev, tbl, kernels) -> None:
             k3.launch(x, cq, dq, sc, taps, out, **kw)
 
         main = C == 8 and not pilot
-        runs = [cuda_ms(k3_launch, 200, name=f"K3 C={C} T={len(taps)}")
+        runs = [cuda_ms(k3_launch, 200,
+                        name=f"K3 C={C} T={len(taps)} L={L}")
                 for _ in range(5)]
         paced = ([cuda_ms(k3_launch, 200, queue_ahead=False)
                   for _ in range(5)] if main else None)
@@ -773,6 +803,688 @@ def probe_phase(dev, kernels) -> None:
                   for r in rows])
 
 
+# ---- Galileo E1 -----------------------------------------------------------
+
+E1_FS = 4.0e6
+E1_RATE = 2.046e6               # sinBOC table units per second
+E1_LEN = 8184                   # sinBOC table units a code period
+GAL_F = 1575.42e6
+# the scenarios of tests/test_galileo.py (E1-B, data only), of
+# tests/test_galileo_pilot.py (E1-B+C with the pilot) and of bench.py's gal8
+GAL_SCENARIOS = {
+    "e1b": dict(fs=2.6e6, tow_start_s=7310.0, duration_s=20.0, cn0_dbhz=46.0,
+                rx_clock_bias_s=1.7e-4, max_sats=6, min_elevation_deg=15.0,
+                seed=3),
+    "e1bc": dict(fs=4.0e6, tow_start_s=7310.0, duration_s=20.0,
+                 cn0_dbhz=48.0, rx_clock_bias_s=1.1e-4, max_sats=6,
+                 min_elevation_deg=15.0, seed=3, emit_pilot=True),
+    "gal8": dict(fs=4.0e6, tow_start_s=7310.0, duration_s=6.0, cn0_dbhz=46.0,
+                 max_sats=8, seed=3),
+}
+_SCEN_CACHE: dict = {}
+
+
+def gal_scenario(kind: str):
+    """The Galileo scenario ``kind`` (one per process)."""
+    from gnss_sdr_tpu_torch.simulate.galileo import (
+        GalileoScenario,
+        GalileoScenarioConfig,
+    )
+
+    if kind not in _SCEN_CACHE:
+        _SCEN_CACHE[kind] = GalileoScenario(
+            GalileoScenarioConfig(**GAL_SCENARIOS[kind]))
+    return _SCEN_CACHE[kind]
+
+
+def gal_capture(kind: str) -> np.ndarray:
+    """The whole capture of scenario ``kind``, made in the tests' 1 s
+    chunks (the scenario's noise is seeded by the chunk's start, so these
+    are the tests' samples)."""
+    scen = gal_scenario(kind)
+    fs = int(scen.cfg.fs)
+    total = int(scen.cfg.duration_s * scen.cfg.fs)
+    return np.concatenate([scen.generate(s, min(fs, total - s))
+                           for s in range(0, total, fs)])
+
+
+@contextlib.contextmanager
+def record_blocks(every: int = 64):
+    """Keep a copy of the inputs of the kernel calls the tracking engines
+    make (tracking/fused.py's ``track_blocked`` and ``track_full``,
+    tracking/dll_pll.py's ``correlator``): of calls 0, 1, 2, 4, 8, ... and
+    of every ``every``-th, the latest per kernel, as ``{kernel: (args,
+    kwargs, call index)}``. A kernel can then be held to its plain version
+    on a block of the run itself."""
+    from gnss_sdr_tpu_torch.tracking import dll_pll, fused
+
+    kept, saved = {}, []
+
+    def wrap(mod, attr):
+        fn = getattr(mod, attr)
+        calls = [0]
+
+        def recorded(*args, **kw):
+            i = calls[0]
+            calls[0] += 1
+            if i & (i - 1) == 0 or i % every == 0:
+                kept[attr] = (tuple(a.clone() if isinstance(a, torch.Tensor)
+                                    else a for a in args), dict(kw), i)
+            return fn(*args, **kw)
+
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, recorded)
+
+    wrap(fused, "track_blocked")
+    wrap(fused, "track_full")
+    wrap(dll_pll, "correlator")
+    try:
+        yield kept
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def hold_fused_block(run: str, kname: str, rec, kernels=None,
+                     entry: str | None = None, reps: int = 20) -> dict:
+    """K1 (``kname`` "track_blocked") or K2 ("track_full") against its
+    plain version (K1's) on a recorded block ``rec`` of the run ``run``:
+    the long-code bounds (2e-4 relative over the first two periods, 2e-3
+    over the block, tests/test_track_kernel_blocked.py) on check_lanes(T),
+    lanes 10 and 17 exact; timed, with its bound from the block's own
+    rows. Goes into ``kernels[entry]`` where given."""
+    from gnss_sdr_tpu_torch.ops import track_kernel as k2
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.ops.slots import LANES, S_EN
+
+    args, _, call = rec
+    window, codes, scal, pos, spec = args[:5]
+    tabs = args[5:] if spec.track_pilot else ()
+    C, K, T = scal.shape[0], spec.n_periods, spec.num_taps
+    wrapper, launch = {"track_blocked": (k1.track_blocked, k1.launch),
+                       "track_full": (k2.track_full, k2.launch)}[kname]
+    o_k = wrapper(window, codes, scal, pos, spec, *tabs).cpu().numpy()
+    cluster = k1.track_blocked.cluster if kname == "track_blocked" else 1
+    ref = {}
+
+    def plain():
+        ref["o"] = k1.track_blocked_plain(window, codes, scal, pos, spec,
+                                          *tabs)
+
+    plain_ms = cuda_ms(plain, 1, queue_ahead=False)
+    o_p = ref["o"].cpu().numpy()
+    lanes = check_lanes(T)
+    rels = rows_rel_err(f"{kname} on a block of {run}", o_p, o_k, K,
+                        lanes=lanes, first_tol=2e-4)
+    out = torch.empty((C, K, LANES), dtype=torch.float32,
+                      device=window.device)
+    ms = cuda_ms(lambda: launch(window, codes, scal, pos, spec, out, *tabs),
+                 reps, name=f"{kname} {run}")
+    n_total = float(o_p[:, :, 10].sum())
+    nbytes = (stream_bytes(o_p, window.shape[0])
+              + codes.numel() * 4 * (2 if spec.track_pilot else 1)
+              + sum(t.numel() * 4 for t in tabs[1:])
+              + scal.numel() * 4 + C * 4 + C * K * LANES * 4)
+    b_ms, b_by = bound(nbytes, n_total * (fused_ops_per_sample(T)
+                                          + (16 if spec.track_pilot else 0)))
+    res = dict(max_abs_err=float(np.abs(o_p[:, :, lanes]
+                                        - o_k[:, :, lanes]).max()),
+               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    if entry is not None:
+        kernels[entry] = dict(res)
+    emit("block_vs_plain", run=run, kernel=kname, call=call, C=C, K=K,
+         n_max=spec.n_max, L=spec.code_len, T=T, pilot=spec.track_pilot,
+         sec_len_pilot=spec.sec_len_pilot, sec_len_data=spec.sec_len_data,
+         enabled=int((scal[:, S_EN] > 0.5).sum()), cluster_ctas=cluster,
+         exact_lanes=EXACT_LANES, **rels, **res,
+         us_per_period=ms * 1e3 / K)
+    return res
+
+
+def hold_correlator_block(run: str, rec, kernels, entry: str) -> dict:
+    """K3 against its plain version on a recorded period ``rec`` of the
+    eager engine in run ``run``: taps within 2e-3 relative (to
+    max(|tap|, 1)), the lanes past them zero, as phase 3 holds it; timed,
+    with its bound from the period's own sample counts."""
+    from gnss_sdr_tpu_torch.ops import correlator as k3
+    from gnss_sdr_tpu_torch.ops.slots import LANES
+
+    (x, cq, dq, sc, taps), kw, call = rec
+    got = k3.correlator(x, cq, dq, sc, taps, **kw)
+    ref = k3.correlator_plain(x, cq, dq, sc, taps, **kw)
+    nt = len(taps) + (1 if kw["track_pilot"] else 0)
+    g, r = got.cpu().numpy()[:, 0], ref.cpu().numpy()[:, 0]
+    gc = g[:, 0:2 * nt:2] + 1j * g[:, 1:2 * nt:2]
+    rc = r[:, 0:2 * nt:2] + 1j * r[:, 1:2 * nt:2]
+    rel = float((np.abs(gc - rc) / np.maximum(np.abs(rc), 1.0)).max())
+    if not rel < 2e-3 or np.any(g[:, 2 * nt:] != 0):
+        raise AssertionError(f"K3 on a period of {run} disagrees with its "
+                             f"plain version: {rel}")
+    out = torch.empty_like(got)
+    ms = float(np.median([cuda_ms(
+        lambda: k3.launch(x, cq, dq, sc, taps, out, **kw), 200,
+        name=f"correlator {run}") for _ in range(5)]))
+    plain_ms = cuda_ms(lambda: k3.correlator_plain(x, cq, dq, sc, taps, **kw),
+                       20, queue_ahead=False)
+    C, n_valid = x.shape[0], float(sc[:, 4].sum())
+    nbytes = (n_valid * 8 + C * kw["code_len"] * 4 * (2 if kw["track_pilot"]
+                                                       else 1)
+              + sc.numel() * 4 + C * LANES * 4)
+    b_ms, b_by = bound(nbytes, n_valid * k3_ops_per_sample(
+        len(taps), kw["track_pilot"]))
+    res = dict(max_abs_err=float(np.abs(g - r).max()), ms=ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    kernels[entry] = dict(res)
+    emit("block_vs_plain", run=run, kernel="correlator", call=call, C=C,
+         N=x.shape[1], n_valid=n_valid, L=kw["code_len"], T=len(taps),
+         data_prompt=kw["track_pilot"], rel_err=rel, tol=2e-3,
+         cluster_ctas=k3.correlator.cluster, **res)
+    return res
+
+
+def e1_signal(data_tbl, pilot_tbl, cs25, n, dops, delays, seed):
+    """Galileo E1-B+C channels on sinBOC tables at E1_FS: (data - pilot) /
+    sqrt(2), the data code with a random symbol each period and the pilot
+    code times CS25 (chip 0 on the period that starts at the channel's
+    delay, in samples), at the given Dopplers, with noise."""
+    rng = np.random.default_rng(seed)
+    tt = np.arange(n) / E1_FS
+    sig = np.zeros(n, np.complex64)
+    for c, (dop, dly) in enumerate(zip(dops, delays)):
+        u = np.floor((E1_RATE * (1 + dop / GAL_F)) * (tt - dly / E1_FS)
+                     ).astype(np.int64)
+        per = np.floor_divide(u, E1_LEN)
+        idx = u - per * E1_LEN
+        sym = np.where(rng.random(int(per.max() - per.min()) + 1) < 0.5,
+                       1.0, -1.0)[per - per.min()]
+        comp = (data_tbl[c][idx] * sym - pilot_tbl[c][idx] * cs25[per % 25])
+        sig += (0.35 * comp * np.exp(2j * np.pi * dop * tt + 0.3j * c)
+                ).astype(np.complex64)
+    noise = rng.normal(size=(n, 2)).astype(np.float32) * 0.05
+    return (sig + noise[:, 0] + 1j * noise[:, 1]).astype(np.complex64)
+
+
+E1_CASES = (
+    # name, pilot, sec_len_pilot, sec_len_data
+    ("e1b", False, 1, 1),          # T = 5 without the pilot (E1-B)
+    ("e1bc", True, 25, 1),         # the pilot plan's secondaries
+    ("e1bc_sd4", True, 25, 4),     # tests/test_track_kernel_blocked.py's
+)
+
+
+def e1_kernel_phase(dev) -> None:
+    """Phase 11: K1 and K2 against their plain version at the Galileo E1
+    shape: 4 Msps, 8184-unit sinBOC tables, C = 8, K = 20 and 200, T = 5,
+    for E1_CASES on an E1-B+C signal (channel c tracks satellite c,
+    started 10 Hz off without the pilot; with it, 3 Hz off with the
+    secondary engaged at its true phase, atan2, 5-period integration).
+    Long-code tolerances: 2e-4 over the first two periods, 2e-3 over K,
+    on check_lanes(5). (The kernels line takes K1's and K2's numbers from
+    blocks of the Galileo runs themselves, phases 12-15.)"""
+    from gnss_sdr_tpu_torch.codes.galileo_e1 import e1c_secondary_chips
+    from gnss_sdr_tpu_torch.ops import track_kernel as k2
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.ops.slots import LANES
+    from gnss_sdr_tpu_torch.receiver.plans import (
+        galileo_e1b_plan,
+        galileo_e1bc_plan,
+    )
+    from gnss_sdr_tpu_torch.tracking.fused import (
+        _pack_scalars,
+        build_fused_engine,
+    )
+    from gnss_sdr_tpu_torch.tracking.tracker import Tracker
+
+    C = 8
+    bc = galileo_e1bc_plan(E1_FS, num_channels=C)
+    cs25 = e1c_secondary_chips().astype(np.float32)
+    dops = [1200.0, -2500.0, 3400.0, -400.0, 150.0, -3900.0, 2600.0, -1700.0]
+    delays = [37.0 + 1999.0 * c for c in range(C)]
+    t0 = time.perf_counter()
+    sig = e1_signal(bc.data_code_table, bc.code_table, cs25,
+                    int(E1_FS * 0.86), dops, delays, seed=2)
+    emit("e1_signal", seconds=time.perf_counter() - t0, samples=len(sig))
+    window = torch.as_tensor(sig, device=dev)
+    rng = np.random.default_rng(4)
+    sec_d4 = np.where(rng.random(4) < 0.5, 1.0, -1.0).astype(np.float32)
+    for K in (20, 200):
+        for case, pilot, sp, sd in E1_CASES:
+            if pilot:
+                conf = dataclasses.replace(
+                    bc.trk_conf, steps_per_block=K, sec_len_pilot=sp,
+                    sec_len_data=sd)
+                trk = Tracker(conf, bc.code_table, bc.data_code_table,
+                              bc.sec_pilot_table,
+                              sec_d4 if sd == 4 else bc.sec_data_levels,
+                              device=dev)
+            else:
+                plan = galileo_e1b_plan(E1_FS, num_channels=C,
+                                        steps_per_block=K)
+                conf = plan.trk_conf
+                trk = Tracker(conf, plan.code_table, device=dev)
+            for ch in range(C):
+                trk.start_channel(ch, prn=ch + 1, code_row=ch,
+                                  acq_delay_samples=delays[ch],
+                                  acq_doppler_hz=dops[ch]
+                                  + (3.0 if pilot else 10.0),
+                                  acq_samplestamp=0, current_abs_sample=0)
+            st = trk.state.replace(pos=torch.as_tensor(
+                trk.pos_abs.astype(np.int32), device=dev))
+            if pilot:
+                on = torch.ones(C, dtype=torch.bool, device=dev)
+                st = st.replace(
+                    sec_active=on, use_atan2=on, narrow=on,
+                    fll_active=~on,
+                    integ_len=torch.full((C,), 5, dtype=torch.int32,
+                                         device=dev))
+            spec = build_fused_engine(conf)
+            scal = _pack_scalars(conf, st)
+            codes = torch.as_tensor(trk.codes, device=dev)
+            tabs = ((torch.as_tensor(trk.data_codes, device=dev),
+                     torch.as_tensor(trk.sec_pilot, device=dev),
+                     torch.as_tensor(trk.sec_data, device=dev))
+                    if pilot else ())
+            args = (window, codes, scal, st.pos, spec)
+            o_1 = k1.track_blocked(*args, *tabs).cpu().numpy()
+            cluster = k1.track_blocked.cluster
+            o_2 = k2.track_full(*args, *tabs).cpu().numpy()
+            ref = {}
+
+            def plain():
+                ref["o"] = k1.track_blocked_plain(*args, *tabs)
+
+            plain_ms = cuda_ms(plain, 1, warm=K == 20, queue_ahead=False)
+            o_p = ref["o"].cpu().numpy()
+            n_total = float(o_p[:, :, 10].sum())
+            nbytes = (stream_bytes(o_p, window.shape[0])
+                      + codes.numel() * 4 * (2 if pilot else 1)
+                      + sum(t.numel() * 4 for t in tabs[1:])
+                      + scal.numel() * 4 + C * 4 + C * K * LANES * 4)
+            ops = n_total * (fused_ops_per_sample(5) + (16 if pilot else 0))
+            b_ms, b_by = bound(nbytes, ops)
+            out = torch.empty((C, K, LANES), dtype=torch.float32, device=dev)
+            for kname, o_k, launch, entry, extent in (
+                    ("track_blocked", o_1, k1.launch,
+                     "gnss_track_blocked_smem",
+                     k1.cluster_shape(C, spec.n_max, k1.sm_count(dev))[1]),
+                    ("track_full", o_2, k2.launch, "gnss_track_full_smem",
+                     spec.n_max)):
+                rels = rows_rel_err(f"{kname} {case} C={C}", o_p, o_k, K,
+                                    lanes=check_lanes(5), first_tol=2e-4)
+                ms = cuda_ms(lambda: launch(*args, out, *tabs),
+                             20 if K == 20 else 3,
+                             name=f"{kname} {case} K={K}")
+                need, limit = k1.smem_need(
+                    entry, dev, spec.code_len, int(spec.interp_code), 5,
+                    int(pilot), extent)
+                res = dict(max_abs_err=float(np.abs(
+                    o_p[:, :, check_lanes(5)]
+                    - o_k[:, :, check_lanes(5)]).max()),
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    msamples_per_s=n_total / (ms * 1e-3) / 1e6,
+                    us_per_period=ms * 1e3 / K)
+                emit("e1_fused_vs_plain", kernel=kname, case=case, C=C, K=K,
+                     n_max=spec.n_max, L=spec.code_len, T=5, pilot=pilot,
+                     sec_len_pilot=spec.sec_len_pilot,
+                     sec_len_data=spec.sec_len_data, sec_lcm=spec.sec_lcm,
+                     exact_lanes=EXACT_LANES, smem_bytes=need,
+                     smem_limit=limit,
+                     cluster_ctas=cluster if kname == "track_blocked"
+                     else 1, **rels, **res)
+
+
+def galileo_gates(status, rx, scen) -> dict:
+    """tests/test_galileo.py's gates on a Galileo E1-B run; raises if one
+    fails: >= 4 acquired with Doppler within 125 Hz, >= 4 ephemerides with
+    sqrt_a and toe exact and the orbit within 5 m at the scenario's start,
+    >= 5 fixes, mean 2D < 2 m and 3D < 5 m over fixes[3:], |clock bias| <
+    0.04 s and its spread < 1e-7 s."""
+    from gnss_sdr_tpu_torch.pvt.coords import ecef_to_enu
+    from gnss_sdr_tpu_torch.pvt.ephemeris import eph_to_pos_vel_clock
+
+    fails = []
+    dop_err = {}
+    for (sysid, prn), (dop, _) in status.acquired.items():
+        dop_err[prn] = abs(dop - scen.truth_at(prn, 0.0)["doppler_hz"])
+        if sysid != "E" or dop_err[prn] > 125.0:
+            fails.append(f"acquisition {sysid}{prn}")
+    orbit = {}
+    for (_, prn), eph in rx.ephemerides.items():
+        true = scen.ephs[prn]
+        t = scen.cfg.tow_start_s
+        orbit[prn] = float(np.linalg.norm(
+            eph_to_pos_vel_clock(eph, t)[0] - eph_to_pos_vel_clock(true, t)[0]))
+        if not (abs(eph.sqrt_a - true.sqrt_a) <= 2.0 ** -19 + 1e-12
+                and abs(eph.toe - true.toe) < 1e-9 and orbit[prn] < 5.0):
+            fails.append(f"ephemeris E{prn}")
+    fixes = status.fixes
+    lat, lon = np.deg2rad(scen.cfg.rx_lat_deg), np.deg2rad(scen.cfg.rx_lon_deg)
+    enu = np.array([ecef_to_enu(f.pos_ecef - scen.rx_ecef, lat, lon)
+                    for f in fixes[3:]]).reshape(-1, 3)
+    biases = [f.clock_bias_s for f in fixes[3:]]
+    e = dict(acquired=len(status.acquired),
+             doppler_err_hz=max(dop_err.values(), default=math.inf),
+             ephemerides=len(rx.ephemerides),
+             orbit_err_m=max(orbit.values(), default=math.inf),
+             subframes=status.subframes, fixes=len(fixes),
+             mean_2d_m=float(np.hypot(enu[:, 0], enu[:, 1]).mean())
+             if len(enu) else math.inf,
+             mean_3d_m=float(np.linalg.norm(enu, axis=1).mean())
+             if len(enu) else math.inf,
+             clock_bias_s=fixes[-1].clock_bias_s if fixes else math.inf,
+             clock_bias_std_s=float(np.std(biases)) if biases else math.inf,
+             ttff_s=status.ttff_s)
+    if not (e["acquired"] >= 4 and e["ephemerides"] >= 4 and e["fixes"] >= 5
+            and e["mean_2d_m"] < 2.0 and e["mean_3d_m"] < 5.0
+            and abs(e["clock_bias_s"]) < 0.04
+            and e["clock_bias_std_s"] < 1e-7) or fails:
+        raise AssertionError(f"Galileo gates failed: {e} {fails}")
+    return e
+
+
+def drive_receiver(rx, x: np.ndarray, fs: float):
+    """tests/test_galileo.py's drive: 1 s feeds, acquisition until 4
+    satellites start, a run after each feed. Returns the wall seconds and
+    the blocks the first group's tracker ran."""
+    tracker = rx.groups[0].tracker
+    process = tracker.process_device
+    blocks = [0]
+
+    def counted(*a):
+        r = process(*a)
+        blocks[0] += 1
+        return r
+
+    tracker.process_device = counted
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    chunk, fed, acquired = int(fs), 0, False
+    while fed < len(x):
+        n = min(chunk, len(x) - fed)
+        rx.feed(x[fed:fed + n])
+        fed += n
+        if not acquired:
+            acquired = len(rx.acquire()) >= 4
+        rx.run()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t, blocks[0]
+
+
+def galileo_python_phase(capture, scen, kernels) -> dict:
+    """Phase 12: tests/test_galileo.py's receiver (galileo_e1b_plan at
+    2.6 Msps, 6 channels, 20 s, seed 3) on K1, with its gates; then K1
+    against its plain version on a block of the run (``track_blocked_e1b``
+    in ``kernels``)."""
+    from gnss_sdr_tpu_torch.ops import correlator as k3
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.receiver.plans import galileo_e1b_plan
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+
+    fs = scen.cfg.fs
+    plan = galileo_e1b_plan(fs=fs, num_channels=6)
+    rx = Receiver(ReceiverConfig(fs=fs, num_channels=6), plans=[plan])
+    k1.track_blocked.launches = 0
+    k3.correlator.launches = 0
+    with record_blocks() as rec:
+        wall, blocks = drive_receiver(rx, capture, fs)
+    n1, n3 = k1.track_blocked.launches, k3.correlator.launches
+    if not (blocks > 0 and n1 == blocks and n3 == 0):
+        raise AssertionError(f"E1-B: {n1} K1 and {n3} K3 launches for "
+                             f"{blocks} blocks")
+    e = dict(galileo_gates(rx.status, rx, scen), blocks=blocks,
+             k1_launches=n1, wall_s=wall,
+             realtime_factor=scen.cfg.duration_s / wall)
+    emit("e2e_galileo_e1b_20s", **e)
+    hold_fused_block("e2e_galileo_e1b_20s", "track_blocked",
+                     rec["track_blocked"], kernels, "track_blocked_e1b")
+    return e
+
+
+def galileo_cli_phase(capture, scen, tmp: Path, kernels) -> dict:
+    """Phase 13: the .conf/CLI entry point with conf/galileo_e1_file.conf's
+    keys (the filename, sampling rate and channel count rewritten to phase
+    12's capture, written as ishort), through K1 and through K2, each held
+    to phase 12's gates; then each kernel against its plain version on a
+    block of its run (K2's as ``track_full_e1b`` in ``kernels``)."""
+    from gnss_sdr_tpu_torch import main as cli
+    from gnss_sdr_tpu_torch.config.configuration import FileConfiguration
+    from gnss_sdr_tpu_torch.io import encode_samples
+    from gnss_sdr_tpu_torch.ops import track_kernel as k2
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver
+    from gnss_sdr_tpu_torch.tracking.tracker import Tracker
+
+    t0 = time.perf_counter()
+    fs = int(scen.cfg.fs)
+    cap = tmp / "capture_e1.dat"
+    cap.write_bytes(encode_samples(np.round(capture * 256), "ishort"))
+    text = (ROOT / "conf" / "galileo_e1_file.conf").read_text()
+    for old, new in (("SignalSource.filename=./capture_e1.dat",
+                      f"SignalSource.filename={cap}"),
+                     ("GNSS-SDR.internal_fs_sps=4000000",
+                      f"GNSS-SDR.internal_fs_sps={fs}"),
+                     ("SignalSource.sampling_frequency=4000000",
+                      f"SignalSource.sampling_frequency={fs}"),
+                     ("Channels_1B.count=8", "Channels_1B.count=6")):
+        if old not in text:
+            raise AssertionError(f"conf/galileo_e1_file.conf has no {old!r}")
+        text = text.replace(old, new)
+    text += "".join(f"PVT.{k}={tmp / v}\n" for k, v in (
+        ("kml_dump_filename", "e1.kml"), ("rinex_obs_filename", "e1.obs"),
+        ("rinex_nav_filename", "e1.nav")))
+    conf = tmp / "galileo_e1_file.conf"
+    conf.write_text(text)
+    emit("galileo_cli_capture", seconds=time.perf_counter() - t0,
+         bytes=cap.stat().st_size, item_type="ishort", fs=fs)
+
+    blocks, made = [0], []
+    process, init = Tracker.process_device, Receiver.__init__
+
+    def counted(self, *a):
+        r = process(self, *a)
+        blocks[0] += 1
+        return r
+
+    def recorded(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+
+    runs = {}
+    Tracker.process_device = counted
+    Receiver.__init__ = recorded
+    try:
+        for engine, env in (("track_blocked", None),
+                            ("track_full", "perchannel")):
+            blocks[0] = 0
+            k1.track_blocked.launches = 0
+            k2.track_full.launches = 0
+            with (fused_engine(env), record_blocks() as rec,
+                  contextlib.redirect_stdout(io.StringIO())):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                status = cli.run_from_config(FileConfiguration(conf))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            n1, n2 = k1.track_blocked.launches, k2.track_full.launches
+            want = {"track_blocked": (blocks[0], 0),
+                    "track_full": (0, blocks[0])}[engine]
+            if not (blocks[0] > 0 and (n1, n2) == want):
+                raise AssertionError(
+                    f"Galileo CLI run ({engine}): {n1} K1 and {n2} K2 "
+                    f"launches for {blocks[0]} blocks")
+            runs[engine] = dict(
+                galileo_gates(status, made[-1], scen),
+                GNSS_SDR_TPU_FUSED=env,
+                blocks=blocks[0], k1_launches=n1, k2_launches=n2,
+                wall_s=wall, realtime_factor=scen.cfg.duration_s / wall)
+            emit("galileo_cli_run", engine=engine, **runs[engine])
+            hold_fused_block(f"galileo_cli_run {engine}", engine,
+                             rec[engine], kernels,
+                             "track_full_e1b" if env else None)
+    finally:
+        Tracker.process_device = process
+        Receiver.__init__ = init
+    return runs
+
+
+def galileo_pilot_phase(capture, scen, kernels) -> dict:
+    """Phase 14: tests/test_galileo_pilot.py's receiver
+    (galileo_e1bc_plan at 4 Msps, 6 channels, 20 s, the pilot emitted) on
+    K1, with its gates (>= 4 channels secondary-locked in NARROW with
+    integ_len 5 and C/N0 > 35 dB-Hz, >= 4 ephemerides, the last fix within
+    5 m), and K1 against its plain version on a block of the run
+    (``track_blocked_e1bc``). Then the three engines on the same capture: a
+    K1 tracker started from the run's acquisitions runs until its channels
+    lock the secondary, its state goes to an eager (K3) and a K2 tracker,
+    and all three run 3 blocks, held to each other by
+    tests/test_fused_receiver.py's _assert_match; K2 and K3 against their
+    plain versions on a block and a period of those runs
+    (``track_full_e1bc``, ``correlator_e1bc``)."""
+    import copy
+
+    from gnss_sdr_tpu_torch.ops import correlator as k3
+    from gnss_sdr_tpu_torch.ops import track_kernel as k2
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.receiver.plans import galileo_e1bc_plan
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+    from gnss_sdr_tpu_torch.tracking.dll_pll import TrackingState
+    from gnss_sdr_tpu_torch.tracking.tracker import ChannelPhase, Tracker
+
+    fs = scen.cfg.fs
+    plan = galileo_e1bc_plan(fs=fs, num_channels=6)
+    rx = Receiver(ReceiverConfig(fs=fs, num_channels=6), plans=[plan])
+    k1.track_blocked.launches = 0
+    k3.correlator.launches = 0
+    with record_blocks() as rec:
+        wall, blocks = drive_receiver(rx, capture, fs)
+    n1, n3 = k1.track_blocked.launches, k3.correlator.launches
+    if not (blocks > 0 and n1 == blocks and n3 == 0):
+        raise AssertionError(f"E1-B+C: {n1} K1 and {n3} K3 launches for "
+                             f"{blocks} blocks")
+    trk = rx.groups[0].tracker
+    integ = trk.state.integ_len.cpu().numpy()
+    locked = [ch for ch in range(6) if trk.ctl[ch].sec_locked
+              and trk.ctl[ch].phase == ChannelPhase.NARROW]
+    cn0 = {ch: trk.ctl[ch].cn0_dbhz for ch in locked}
+    err = (float(np.linalg.norm(rx.status.fixes[-1].pos_ecef - scen.rx_ecef))
+           if rx.status.fixes else math.inf)
+    e = dict(locked=len(locked), integ_len=[int(integ[c]) for c in locked],
+             cn0_dbhz=cn0, ephemerides=len(rx.ephemerides),
+             subframes=rx.status.subframes, fixes=len(rx.status.fixes),
+             last_fix_3d_m=err, ttff_s=rx.status.ttff_s, blocks=blocks,
+             k1_launches=n1, wall_s=wall,
+             realtime_factor=scen.cfg.duration_s / wall)
+    if not (len(locked) >= 4 and all(int(integ[c]) == 5 for c in locked)
+            and all(v > 35.0 for v in cn0.values())
+            and len(rx.ephemerides) >= 4 and err < 5.0):
+        raise AssertionError(f"E1-B+C gates failed: {e}")
+    emit("e2e_galileo_e1bc_20s", **e)
+    hold_fused_block("e2e_galileo_e1bc_20s", "track_blocked",
+                     rec["track_blocked"], kernels, "track_blocked_e1bc")
+
+    # ---- the three engines on the same capture -------------------------
+    acq = {prn: v for (_, prn), v in rx.status.acquired.items()}
+    x = torch.as_tensor(capture[:int(1.6 * fs)], device="cuda")
+    conf = plan.trk_conf
+    trks = {}
+    for engine, fused, env in (("track_blocked", True, "blocked"),
+                               ("eager", False, None),
+                               ("track_full", True, "perchannel")):
+        with fused_engine(env):
+            trks[engine] = Tracker(
+                dataclasses.replace(conf, fused_tracker=fused),
+                plan.code_table, plan.data_code_table, plan.sec_pilot_table,
+                plan.sec_data_levels, device=x.device)
+    lead = trks["track_blocked"]
+    for ch, (prn, (dop, delay)) in enumerate(sorted(acq.items())):
+        lead.start_channel(ch, prn=prn, code_row=plan.prn_row(prn),
+                           acq_delay_samples=delay, acq_doppler_hz=dop,
+                           acq_samplestamp=0, current_abs_sample=0)
+    started = list(range(len(acq)))
+    settle = 0
+    while not all(lead.ctl[c].sec_locked for c in started
+                  if lead.ctl[c].phase != ChannelPhase.LOST):
+        lead.process_device(x, 0, x.shape[0])
+        settle += 1
+        if settle > 20:
+            raise AssertionError("no secondary lock within 20 blocks")
+    for engine in ("eager", "track_full"):
+        t = trks[engine]
+        t.state = TrackingState(**{
+            f.name: getattr(lead.state, f.name).clone()
+            for f in dataclasses.fields(TrackingState)})
+        t.pos_abs = lead.pos_abs.copy()
+        t.ctl = copy.deepcopy(lead.ctl)
+        for name in ("codes", "data_codes", "sec_pilot", "sec_data"):
+            setattr(t, name, getattr(lead, name).copy())
+        t._codes_dev = None
+    results, counts = {}, {}
+    with record_blocks() as rec:
+        for engine, t in trks.items():
+            k3.correlator.launches = 0
+            k1.track_blocked.launches = 0
+            k2.track_full.launches = 0
+            results[engine] = [t.process_device(x, 0, x.shape[0])
+                               for _ in range(3)]
+            torch.cuda.synchronize()
+            counts[engine] = (k3.correlator.launches,
+                              k1.track_blocked.launches,
+                              k2.track_full.launches)
+    want = {"eager": (3 * conf.steps_per_block, 0, 0),
+            "track_blocked": (0, 3, 0), "track_full": (0, 0, 3)}
+    if counts != want:
+        raise AssertionError(f"E1-B+C engine launches {counts}, want {want}")
+    diffs = {f"{a}_vs_{b}": [assert_match(p, q) for p, q in
+                             zip(results[a], results[b])]
+             for a, b in (("eager", "track_blocked"), ("eager", "track_full"),
+                          ("track_blocked", "track_full"))}
+    for a, b in (("eager", "track_blocked"), ("track_blocked", "track_full")):
+        for p, q in zip(results[a], results[b]):
+            for k in ("data_boundary", "data_count"):
+                if not np.array_equal(p.outputs[k], q.outputs[k]):
+                    raise AssertionError(f"E1-B+C {a} and {b} disagree on {k}")
+    emit("e1bc_three_engines", settle_blocks=settle, blocks=3,
+         channels=len(started), launches=counts, diffs=diffs)
+    hold_fused_block("e1bc_three_engines", "track_full", rec["track_full"],
+                     kernels, "track_full_e1bc")
+    hold_correlator_block("e1bc_three_engines", rec["correlator"], kernels,
+                          "correlator_e1bc")
+    kernels["track_blocked_e1bc"]["launches"] = n1
+    kernels["track_full_e1bc"]["launches"] = counts["track_full"][2]
+    kernels["correlator_e1bc"]["launches"] = counts["eager"][0]
+    return e
+
+
+def gal8_phase(capture, scen, kernels) -> dict:
+    """Phase 15: bench.py's gal8 settings (galileo_e1b_plan at 4 Msps, 8
+    channels, steps_per_block=250, int8_stream) on a 6 s capture; the
+    realtime factor, and K1 against its plain version on a block of the
+    run (``track_blocked_gal8``)."""
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.receiver.plans import galileo_e1b_plan
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+
+    fs = scen.cfg.fs
+    plan = galileo_e1b_plan(fs=fs, num_channels=8, steps_per_block=250)
+    rx = Receiver(ReceiverConfig(fs=fs, num_channels=8, int8_stream=True),
+                  plans=[plan])
+    k1.track_blocked.launches = 0
+    with record_blocks() as rec:
+        wall, blocks = drive_receiver(rx, capture, fs)
+    n1 = k1.track_blocked.launches
+    if not (blocks > 0 and n1 == blocks):
+        raise AssertionError(f"gal8: {n1} K1 launches for {blocks} blocks")
+    e = dict(steps_per_block=250, int8_stream=True, blocks=blocks,
+             k1_launches=n1, locked=len(rx.groups[0].active_channels()),
+             wall_s=wall, realtime_factor=scen.cfg.duration_s / wall)
+    emit("e2e_gal8_6s_bench_settings", **e)
+    hold_fused_block("e2e_gal8_6s_bench_settings", "track_blocked",
+                     rec["track_blocked"], kernels, "track_blocked_gal8",
+                     reps=5)
+    kernels["track_blocked_gal8"]["launches"] = n1
+    return e
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -807,13 +1519,14 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=_build.build_seconds)
     # registers, stack frame and spills of K1-K4 and P1 (ptxas -v), one
-    # entry per instantiation: K1 and K2 per replica form, K3 per tap count,
+    # entry per instantiation: K1 and K2 per tap count, pilot mode and
+    # replica form, K3 per tap count,
     # replica form and data prompt, K4 per tap count and replica form, P1
     # per variant and cluster size (R = 1, 2, 4, 8; narrow has one)
     found = _build.kernel_resources(_build.build_log)
     res = {}
-    for kname, tag, want in (("track_blocked", "BlockedLoop", 2),
-                             ("track_full", "track_full_kernel", 2),
+    for kname, tag, want in (("track_blocked", "BlockedLoop", 8),
+                             ("track_full", "track_full_kernel", 8),
                              ("correlator", "correlator_kernel", 8),
                              ("track_simple", "SimpleLoop", 4),
                              ("probe", "probe_", 41)):
@@ -947,7 +1660,34 @@ def main() -> int:
     # ---- 10. the primitive-cost probe (P1) -------------------------------
     probe_phase(dev, kernels)
 
-    # ---- 11. kernels -----------------------------------------------------
+    # ---- 11. K1 and K2 at the Galileo E1 shape --------------------------
+    e1_kernel_phase(dev)
+
+    # ---- the Galileo captures --------------------------------------------
+    gal_caps = {}
+    for kind in GAL_SCENARIOS:
+        t0 = time.perf_counter()
+        gal_caps[kind] = gal_capture(kind)
+        emit("galileo_capture", scenario=kind,
+             seconds=time.perf_counter() - t0, samples=len(gal_caps[kind]))
+
+    # ---- 12. Galileo E1-B from Python (K1) -------------------------------
+    e1b = galileo_python_phase(gal_caps["e1b"], gal_scenario("e1b"), kernels)
+    kernels["track_blocked_e1b"]["launches"] = e1b["k1_launches"]
+
+    # ---- 13. Galileo E1-B through the CLI, K1 and K2 ---------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        gruns = galileo_cli_phase(gal_caps["e1b"], gal_scenario("e1b"),
+                                  Path(tmp), kernels)
+    kernels["track_full_e1b"]["launches"] = gruns["track_full"]["k2_launches"]
+
+    # ---- 14. Galileo E1-B+C with the pilot, and the three engines --------
+    galileo_pilot_phase(gal_caps["e1bc"], gal_scenario("e1bc"), kernels)
+
+    # ---- 15. gal8 at bench.py's settings ---------------------------------
+    gal8_phase(gal_caps["gal8"], gal_scenario("gal8"), kernels)
+
+    # ---- 16. kernels -----------------------------------------------------
     meta = {
         "track_blocked": dict(
             route="cuda", source="gnss_sdr_tpu_torch/csrc/track_blocked.cu",
@@ -965,6 +1705,14 @@ def main() -> int:
             route="cuda", source="gnss_sdr_tpu_torch/csrc/probe.cu",
             replaces="tools/mosaic_probe.py:50"),
     }
+    for case in ("e1b", "e1bc"):
+        meta[f"track_blocked_{case}"] = meta["track_blocked"]
+        meta[f"track_full_{case}"] = meta["track_full"]
+    meta["correlator_e1bc"] = meta["correlator"]
+    meta["track_blocked_gal8"] = meta["track_blocked"]
+    for n in meta:
+        if not kernels[n].get("launches"):
+            raise AssertionError(f"{n}: no launch on its path")
     table = [{"name": n, **meta[n], "launches": kernels[n]["launches"],
               "max_abs_err": kernels[n]["max_abs_err"],
               "ms": kernels[n]["ms"], "plain_ms": kernels[n]["plain_ms"],
@@ -972,8 +1720,7 @@ def main() -> int:
               "bound_by": kernels[n]["bound_by"], "library_ms": None,
               **({"variants": kernels[n]["variants"]} if n == "probe"
                  else {})}
-             for n in ("track_blocked", "track_full", "correlator",
-                       "track_simple", "probe")]
+             for n in meta]
     emit("done", seconds=time.perf_counter() - t_start,
          host_paced_timings=HOST_PACED)
     print(json.dumps({"kernels": table}), flush=True)

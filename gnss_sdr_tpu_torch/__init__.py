@@ -1,21 +1,21 @@
-"""gnss_sdr_tpu_torch — the GPS L1 C/A receiver of ``gnss_sdr_tpu`` on
-PyTorch and CUDA, from Python or from a ``.conf`` file
+"""gnss_sdr_tpu_torch — the GPS L1 C/A and Galileo E1 receiver of
+``gnss_sdr_tpu`` on PyTorch and CUDA, from Python or from a ``.conf`` file
 (``python -m gnss_sdr_tpu_torch.main -c <file.conf>``).
 
 The package mirrors ``gnss_sdr_tpu``'s module paths and public names. The
 JAX package stays the reference; this one imports neither it nor JAX.
 Pure-NumPy modules (codes, constants, config, I/O sources and formats,
-output writers, telemetry, observables, PVT, the scenario simulator) are
+output writers, telemetry, observables, PVT, the scenario simulators) are
 copies of the JAX package's files. Tracking runs through hand-written CUDA
-kernels under ``csrc/``: the K-period fused tracker in two mappings, one
-CTA per channel (K1, ``ops/track_kernel_blocked.py``) and one warp per
-channel (K2, ``ops/track_kernel.py``, under
-``GNSS_SDR_TPU_FUSED=perchannel``), and the one-period correlator (K3,
-``ops/correlator.py``). The kernel-bench tools (``tools/kbench.py``,
-``tools/mosaic_probe.py``) add the simple fused tracker (K4,
-``ops/track_kernel.py``) and the primitive-cost probe (P1). Each kernel
-has a plain PyTorch version beside it, which the wrappers use only for
-tensors that lie on the CPU.
+kernels under ``csrc/``: the K-period fused tracker in two mappings, a
+thread-block cluster of CTAs per channel (K1,
+``ops/track_kernel_blocked.py``) and one CTA per channel (K2,
+``ops/track_kernel.py``, under ``GNSS_SDR_TPU_FUSED=perchannel``), and the
+one-period correlator (K3, ``ops/correlator.py``). The kernel-bench tools
+(``tools/kbench.py``, ``tools/mosaic_probe.py``) add the simple fused
+tracker (K4, ``ops/track_kernel.py``) and the primitive-cost probe (P1).
+Each kernel has a plain PyTorch version beside it, which the wrappers use
+only for tensors that lie on the CPU.
 
 Device policy: entry points take a ``device`` and default to ``"cuda"``.
 Without CUDA they raise unless the caller asked for ``"cpu"``; there is no

@@ -1,4 +1,4 @@
-// The per-period loop of the fused GPS trackers, shared by their CUDA
+// The per-period loop of the fused trackers, shared by their CUDA
 // mappings: csrc/track_blocked.cu (K1) and csrc/track_simple.cu (K4) run the
 // cluster kernel below (cluster_track_kernel, a thread-block cluster of R
 // CTAs per channel) with their own loop policies, csrc/track_full.cu (K2,
@@ -21,6 +21,18 @@
 // stages each period's samples with cp.async.bulk (TMA's 1-D bulk copy)
 // completing on an mbarrier, one period ahead of the consumer warps, which
 // run the per-sample step accumulate_staged on what has arrived.
+//
+// Modes. T = 3 (early, prompt, late; the NELP DLL) or T = 5 (very early ..
+// very late; the VEML DLL). PILOT adds the pilot/secondary mode of the TPU
+// kernel (gnss_sdr_tpu/ops/track_kernel_blocked.py:483-529): the taps
+// correlate the pilot code, one more tap at offset 0 correlates the data
+// code (the data prompt), and once the host engages the secondary
+// (S_SEC_ACT) each period's taps are wiped by the pilot secondary chip and
+// the data prompt by the data secondary chip, both at the period's
+// secondary index, which runs modulo sec_lcm; the data accumulator closes
+// a symbol every sec_len_data periods. Both are template parameters: the
+// GPS instantiation (T = 3, no PILOT) runs the float operations it ran
+// before the modes were added, in the same order.
 
 #pragma once
 
@@ -28,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper_util.cuh"
 
@@ -40,7 +54,8 @@ constexpr float TWO_PI = 6.2831855f;  // float32(2 pi)
 constexpr int S_REM = 1, S_DCODE = 2, S_PHASE = 3, S_DOP = 4;
 constexpr int S_PLL_I1 = 5, S_DLL_I1 = 6, S_EN = 7, S_PLL_I2 = 8, S_DLL_I2 = 9;
 constexpr int S_INTEG_LEN = 10, S_INTEG_CNT = 11, S_ACC_N = 12, S_SEC_IDX = 13;
-constexpr int S_ATAN2 = 15, S_FLL = 16, S_PLL_BW = 17, S_DLL_BW = 18;
+constexpr int S_SEC_ACT = 14, S_ATAN2 = 15, S_FLL = 16;
+constexpr int S_PLL_BW = 17, S_DLL_BW = 18;
 constexpr int S_PREV_RE = 19, S_PREV_IM = 20;
 constexpr int S_ACCD_RE = 21, S_ACCD_IM = 22, S_ACCD_CNT = 23, S_ACC0 = 24;
 
@@ -54,6 +69,7 @@ constexpr int LANE_DATA_CNT = 35, LANE_SEC_IDX = 36, LANE_ICOUNT = 37;
 constexpr int LANE_PREV_RE = 38, LANE_PREV_IM = 39;
 
 constexpr int MAX_TAPS = 5;
+constexpr int SEC_MAX = 128;           // secondary chips a table row holds
 
 // per-launch constants, float32 values computed on the host exactly as the
 // plain version computes them
@@ -75,6 +91,22 @@ struct Params {
   int pll_order;
   int dll_order;
 };
+
+// The pilot mode's tables on the device: the data code [C, code_len] and
+// the secondary rows [C, sec_wp] and [C, sec_wd] (sequences of sp and sd
+// chips), and the secondary counter's modulus. A kernel without the pilot
+// mode carries NoPilot in its place, so that its arguments stay those of
+// the GPS kernels.
+struct Pilot {
+  const float* dcodes;
+  const float* sec_p;
+  const float* sec_d;
+  int sec_wp, sec_wd;
+  int sp, sd, lcm;
+};
+struct NoPilot {};
+template <bool PILOT>
+using PilotOf = typename std::conditional<PILOT, Pilot, NoPilot>::type;
 
 // params (host, float32[8 + num_taps]): inv_fs, nominal_step, aid_ratio,
 // w0f, pll_div, dll_div, c0, spcf, tap offsets
@@ -101,6 +133,25 @@ inline Params make_params(const float* hp, int num_taps, int window_len,
   return P;
 }
 
+// the pilot-mode arguments of the C entry points: dcodes (f32 [C,
+// code_len]), sec_p (f32 [C, sec_wp]), sec_d (f32 [C, sec_wd]) and
+// sec[5] = {sec_wp, sec_wd, sp, sd, lcm}; false unless 1 <= sp <= sec_wp <=
+// SEC_MAX, 1 <= sd <= sec_wd <= SEC_MAX, lcm >= 1 and the pointers are set
+inline bool make_pilot(Pilot& pl, const void* dcodes, const void* sec_p,
+                       const void* sec_d, const int* sec) {
+  pl.dcodes = static_cast<const float*>(dcodes);
+  pl.sec_p = static_cast<const float*>(sec_p);
+  pl.sec_d = static_cast<const float*>(sec_d);
+  pl.sec_wp = sec[0];
+  pl.sec_wd = sec[1];
+  pl.sp = sec[2];
+  pl.sd = sec[3];
+  pl.lcm = sec[4];
+  return pl.dcodes && pl.sec_p && pl.sec_d && pl.sp >= 1
+         && pl.sp <= pl.sec_wp && pl.sec_wp <= SEC_MAX && pl.sd >= 1
+         && pl.sd <= pl.sec_wd && pl.sec_wd <= SEC_MAX && pl.lcm >= 1;
+}
+
 // loop state of one channel
 template <int T>
 struct State {
@@ -111,7 +162,7 @@ struct State {
   float prev_re, prev_im, accd_re, accd_im, accd_cnt;
   float acc[2 * T];
   // per-launch channel constants
-  float en, integ_len, atan2_flag, fll, pll_bw, dll_bw, w0p, w0d;
+  float en, integ_len, atan2_flag, fll, pll_bw, dll_bw, w0p, w0d, sec_act;
   // this period's geometry
   float delta, code_step, n;
 };
@@ -138,27 +189,72 @@ __device__ __forceinline__ float nz(float x) {
   return fabsf(x) < 1e-20f ? 1e-20f : x;
 }
 
+__device__ __forceinline__ float mag(float re, float im) {
+  return sqrtf(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
+}
+
+// i mod m for the small non-negative integers the secondary counter holds,
+// in float32 as the TPU kernel computes it
+__device__ __forceinline__ float fmod_period(float i, float m) {
+  return __fsub_rn(i, __fmul_rn(m, floorf(i / m)));
+}
+
 // accumulation, discriminators, loop filters and NCO advance for one
 // period (the per-channel section); fills the output row unless row is
-// null (every thread of a CTA may run it; one writes the row)
-template <int T>
-__device__ void close_loop(State<T>& s, const Params& P, const float* taps,
-                           float* row) {
+// null (every thread of a CTA may run it; one writes the row). taps holds
+// the 2T tap sums, then with PILOT the data prompt's two; sec_p and sec_d
+// are the channel's secondary rows (PILOT only)
+template <int T, bool PILOT>
+__device__ void close_loop(State<T>& s, const Params& P,
+                           const PilotOf<PILOT>& pl, const float* taps,
+                           float* row, const float* sec_p,
+                           const float* sec_d) {
   constexpr int p = T / 2;
   const bool eng = s.en > 0.5f;
-  for (int j = 0; j < 2 * T; ++j) s.acc[j] = s.acc[j] + taps[j];
+  // the secondary chips of this period, once the host engaged them
+  float wipe_p = 1.0f, wipe_d = 1.0f;
+  if constexpr (PILOT) {
+    const bool act = s.sec_act > 0.5f;
+    if (act && pl.sp > 1)
+      wipe_p = sec_p[(int)fmod_period(s.sec_idx, (float)pl.sp)];
+    if (act && pl.sd > 1)
+      wipe_d = sec_d[(int)fmod_period(s.sec_idx, (float)pl.sd)];
+    for (int j = 0; j < 2 * T; ++j)
+      s.acc[j] = __fadd_rn(s.acc[j], __fmul_rn(taps[j], wipe_p));
+  } else {
+    for (int j = 0; j < 2 * T; ++j) s.acc[j] = s.acc[j] + taps[j];
+  }
   const float acc_n_new = s.acc_n + s.n;
   const float icount_new = eng ? s.icount + 1.0f : 0.0f;
   const bool boundary = (icount_new >= s.integ_len) && eng;
   const float bf = boundary ? 1.0f : 0.0f;
-  const float accd_re_new = s.accd_re + taps[2 * p];
-  const float accd_im_new = s.accd_im + taps[2 * p + 1];
+  float accd_re_new, accd_im_new, sec_next;
+  bool data_boundary;
+  if constexpr (PILOT) {
+    // the data prompt, its own secondary wiped; a symbol closes on the
+    // last chip of the data secondary
+    accd_re_new = __fadd_rn(s.accd_re, __fmul_rn(taps[2 * T], wipe_d));
+    accd_im_new = __fadd_rn(s.accd_im, __fmul_rn(taps[2 * T + 1], wipe_d));
+  } else {
+    accd_re_new = s.accd_re + taps[2 * p];
+    accd_im_new = s.accd_im + taps[2 * p + 1];
+  }
   const float accd_cnt_new = s.accd_cnt + 1.0f;
-  const bool data_boundary = eng;
+  if constexpr (PILOT) {
+    data_boundary = pl.sd > 1
+        ? (fmod_period(s.sec_idx, (float)pl.sd) == (float)(pl.sd - 1)) && eng
+        : eng;
+  } else {
+    data_boundary = eng;
+  }
   const float dbf = data_boundary ? 1.0f : 0.0f;
   const float sec_n = s.sec_idx + 1.0f;
-  // one secondary chip per period: the counter wraps every period
-  const float sec_next = eng ? sec_n - floorf(sec_n) : s.sec_idx;
+  if constexpr (PILOT) {
+    sec_next = eng ? fmod_period(sec_n, (float)pl.lcm) : s.sec_idx;
+  } else {
+    // one secondary chip per period: the counter wraps every period
+    sec_next = eng ? sec_n - floorf(sec_n) : s.sec_idx;
+  }
 
   // discriminators on the accumulated taps
   const float t_int = acc_n_new * P.inv_fs;
@@ -174,12 +270,17 @@ __device__ void close_loop(State<T>& s, const Params& P, const float* taps,
       atanf(cross / nz(dot)) / (TWO_PI * fmaxf(t_int, 1e-20f));
   const float e_re = s.acc[2 * (p - 1)], e_im = s.acc[2 * (p - 1) + 1];
   const float l_re = s.acc[2 * (p + 1)], l_im = s.acc[2 * (p + 1) + 1];
-  const float e_mag = sqrtf(__fadd_rn(__fmul_rn(e_re, e_re),
-                                     __fmul_rn(e_im, e_im)));
-  const float l_mag = sqrtf(__fadd_rn(__fmul_rn(l_re, l_re),
-                                     __fmul_rn(l_im, l_im)));
-  const float code_err =
-      0.5f * (e_mag - l_mag) / fmaxf(e_mag + l_mag, 1e-20f);
+  const float e_mag = mag(e_re, e_im);
+  const float l_mag = mag(l_re, l_im);
+  float code_err;
+  if constexpr (T == 5) {
+    // VEML: the very early and very late taps join the early and late ones
+    const float ve = mag(s.acc[0], s.acc[1]), vl = mag(s.acc[8], s.acc[9]);
+    const float em = e_mag + ve, lm = l_mag + vl;
+    code_err = 0.5f * (em - lm) / fmaxf(em + lm, 1e-20f);
+  } else {
+    code_err = 0.5f * (e_mag - l_mag) / fmaxf(e_mag + l_mag, 1e-20f);
+  }
 
   // loop filters (boundary-gated)
   const float fll_add =
@@ -321,6 +422,7 @@ __device__ void load_state(State<T>& s, const float* sc, int pos,
   s.fll = sc[S_FLL];
   s.pll_bw = sc[S_PLL_BW];
   s.dll_bw = sc[S_DLL_BW];
+  s.sec_act = sc[S_SEC_ACT];
   s.w0p = s.pll_bw / P.pll_div;
   s.w0d = s.dll_bw / P.dll_div;
 }
@@ -381,11 +483,13 @@ __device__ __forceinline__ Geo geo_of(const S& s, const Params& P) {
 // phase ramp ph0 + dstep * k (sincos_reduced), the soft replica at the code
 // phase rem + step * k (replica_staged), with contraction allowed in the
 // wipeoff and the tap products; the two phase ramps stay single-rounded
-// fmaf as the plain version rounds them
-template <int T, bool INTERP>
+// fmaf as the plain version rounds them. With PILOT, accumulator T takes
+// the data code's replica at offset 0 (the data prompt).
+template <int T, bool INTERP, bool PILOT>
 __device__ __forceinline__ void accumulate_staged(
-    float2 x, const float* code, int code_len, const float* offs, float kf,
-    const Geo& g, float* acc_re, float* acc_im) {
+    float2 x, const float* code, const float* dcode, int code_len,
+    const float* offs, float kf, const Geo& g, float* acc_re,
+    float* acc_im) {
   float sw, cw;
   sincos_reduced(fmaf(g.dstep, kf, g.ph0), &sw, &cw);
   const float wr = x.x * cw + x.y * sw;
@@ -397,6 +501,11 @@ __device__ __forceinline__ void accumulate_staged(
                                            g.inv_step);
     acc_re[t] += wr * v;
     acc_im[t] += wi * v;
+  }
+  if constexpr (PILOT) {
+    const float v = replica_staged<INTERP>(dcode, code_len, cph, g.inv_step);
+    acc_re[T] += wr * v;
+    acc_im[T] += wi * v;
   }
 }
 
@@ -425,6 +534,32 @@ __host__ __device__ inline RingShape ring_shape(int width) {
   r.chunk = (r.chunk + COPY_ALIGN - 1) / COPY_ALIGN * COPY_ALIGN;
   r.slotw = r.chunk + COPY_ALIGN;
   return r;
+}
+
+// Dynamic shared memory of a tracker CTA (K1, K2, K4): the ring's two
+// slots, the channel's code table, and with PILOT its data code table and
+// its two secondary rows (SEC_MAX chips each).
+__host__ __device__ inline size_t track_smem_bytes(const RingShape& R,
+                                                   int code_len, bool pilot) {
+  return (size_t)2 * R.slotw * sizeof(float2)
+         + (size_t)code_len * sizeof(float) * (pilot ? 2 : 1)
+         + (pilot ? (size_t)2 * SEC_MAX * sizeof(float) : 0);
+}
+
+// Stage channel c's pilot tables into shared memory after its code table
+// (s_dcode = s_code + code_len): the data code, then the secondary rows
+// (a row's chips past its width read 1).
+__device__ __forceinline__ void stage_pilot(const Pilot& pl, int c,
+                                            int code_len, float* s_dcode,
+                                            int tid, int nthreads) {
+  float* s_sec = s_dcode + code_len;
+  for (int i = tid; i < code_len; i += nthreads)
+    s_dcode[i] = pl.dcodes[(size_t)c * code_len + i];
+  for (int i = tid; i < SEC_MAX; i += nthreads) {
+    s_sec[i] = i < pl.sec_wp ? pl.sec_p[(size_t)c * pl.sec_wp + i] : 1.0f;
+    s_sec[SEC_MAX + i] =
+        i < pl.sec_wd ? pl.sec_d[(size_t)c * pl.sec_wd + i] : 1.0f;
+  }
 }
 
 // 1 when window[idx] is 16-byte aligned for odd idx (the stream starts 8
@@ -496,14 +631,15 @@ __device__ __forceinline__ int ring_produce_period(
 
 // Consumer warps, once a period: each thread (ctid of nct) adds its samples
 // of this CTA's slice [lo, lo + len) of period `it` (geometry g) to its 2T
-// tap partials, chunk by chunk as the slots fill; each warp releases a slot
-// when it is done with it.
-template <int T, bool INTERP>
+// tap partials (2T + 2 with PILOT, the data prompt last), chunk by chunk as
+// the slots fill; each warp releases a slot when it is done with it.
+template <int T, bool INTERP, bool PILOT>
 __device__ __forceinline__ void ring_consume_period(
     const float2* __restrict__ window, const float2* ring, uint64_t* full,
-    uint64_t* empty, const RingShape& R, const float* code, int code_len,
-    const float* offs, const Geo& g, int it, int lo, int len, int ctid,
-    int nct, int lane, float* acc_re, float* acc_im) {
+    uint64_t* empty, const RingShape& R, const float* code,
+    const float* dcode, int code_len, const float* offs, const Geo& g,
+    int it, int lo, int len, int ctid, int nct, int lane, float* acc_re,
+    float* acc_im) {
   const int a0 = odd_alignment(window);
   for (int c = 0; c < R.nch; ++c) {
     const int gi = it * R.nch + c;
@@ -514,8 +650,9 @@ __device__ __forceinline__ void ring_consume_period(
     const int j1 = min(len, j0 + R.chunk);
     mbar_wait(&full[s], (gi >> 1) & 1);
     for (int j = j0 + ctid; j < j1; j += nct)
-      accumulate_staged<T, INTERP>(src[j - j0], code, code_len, offs,
-                                   (float)(lo + j), g, acc_re, acc_im);
+      accumulate_staged<T, INTERP, PILOT>(src[j - j0], code, dcode,
+                                          code_len, offs, (float)(lo + j), g,
+                                          acc_re, acc_im);
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
   }
@@ -541,15 +678,22 @@ constexpr int RING_THREADS = (NCW + 1) * 32;   // + the producer warp
 // The loop policy `Loop` (BlockedLoop in csrc/track_blocked.cu, SimpleLoop
 // in csrc/track_simple.cu) carries what differs between the trackers:
 //   Loop::T                        taps
+//   Loop::PILOT                    the pilot mode: the data prompt's tap,
+//                                  and loop.pilot (a Pilot) to stage the
+//                                  data code and secondary tables from
 //   Loop::St                       the loop state (warp 0 of each CTA holds
 //                                  it), with pos, rem, dcode, phase, dop and
 //                                  the geometry fields delta, code_step, n
 //   Loop::advances(sc)             whether the channel's position moves on
 //                                  (the producer's next start)
 //   loop.load(st, sc, pos_in, c, P)   the channel's state from its scalars
-//   loop.close(st, P, taps, row)   the closure of one period; it writes the
-//                                  row's lanes unless row is null (the
-//                                  other lanes stay zero)
+//   loop.close(st, P, taps, row, sec_p, sec_d)
+//                                  the closure of one period (taps: 2T
+//                                  sums, then the data prompt's 2 with
+//                                  PILOT; sec_p, sec_d: the channel's
+//                                  secondary rows in shared memory); it
+//                                  writes the row's lanes unless row is
+//                                  null (the other lanes stay zero)
 template <class Loop, bool INTERP>
 __global__ void __launch_bounds__(RING_THREADS)
 cluster_track_kernel(const float2* __restrict__ window,
@@ -559,13 +703,17 @@ cluster_track_kernel(const float2* __restrict__ window,
                      float* __restrict__ out, const Params P,
                      const RingShape R, int ranks, const Loop loop) {
   constexpr int T = Loop::T;
+  constexpr bool PILOT = Loop::PILOT;
+  constexpr int NT = 2 * (T + (PILOT ? 1 : 0));   // sums a period
   namespace cg = cooperative_groups;
-  // [2][slotw] ring slots, then [code_len] code table
+  // [2][slotw] ring slots, then the tables (track_smem_bytes)
   extern __shared__ float4 smem4[];
   float2* ring = reinterpret_cast<float2*>(smem4);
   float* s_code = reinterpret_cast<float*>(ring + 2 * R.slotw);
+  const float* s_dcode = s_code + P.code_len;
+  const float* s_sec = s_dcode + P.code_len;
   __shared__ uint64_t full[2], empty[2];
-  __shared__ float s_part[2][NCW][2 * T];
+  __shared__ float s_part[2][NCW][NT];
   __shared__ __align__(16) float s_row[LANES];
   __shared__ Geo s_geo;
 
@@ -579,6 +727,9 @@ cluster_track_kernel(const float2* __restrict__ window,
 
   for (int i = tid; i < P.code_len; i += RING_THREADS)
     s_code[i] = codes[(size_t)c * P.code_len + i];
+  if constexpr (PILOT)
+    stage_pilot(loop.pilot, c, P.code_len, s_code + P.code_len, tid,
+                RING_THREADS);
   for (int i = tid; i < LANES; i += RING_THREADS) s_row[i] = 0.0f;
   if (tid == 0) {
     for (int s = 0; s < 2; ++s) {
@@ -611,14 +762,14 @@ cluster_track_kernel(const float2* __restrict__ window,
                                    R, g_next, it, P.n_periods, lo, g.pos,
                                    en ? g.pos + g.n : g.pos, lane);
     } else {
-      float acc_re[T], acc_im[T];
+      float acc_re[NT / 2], acc_im[NT / 2];
 #pragma unroll
-      for (int t = 0; t < T; ++t) acc_re[t] = acc_im[t] = 0.0f;
-      ring_consume_period<T, INTERP>(window, ring, full, empty, R, s_code,
-                                     P.code_len, offs, g, it, lo, len, tid,
-                                     NCW * 32, lane, acc_re, acc_im);
+      for (int t = 0; t < NT / 2; ++t) acc_re[t] = acc_im[t] = 0.0f;
+      ring_consume_period<T, INTERP, PILOT>(
+          window, ring, full, empty, R, s_code, s_dcode, P.code_len, offs, g,
+          it, lo, len, tid, NCW * 32, lane, acc_re, acc_im);
 #pragma unroll
-      for (int t = 0; t < T; ++t) {
+      for (int t = 0; t < NT / 2; ++t) {
         for (int o = 16; o > 0; o >>= 1) {
           acc_re[t] += __shfl_down_sync(0xffffffffu, acc_re[t], o);
           acc_im[t] += __shfl_down_sync(0xffffffffu, acc_im[t], o);
@@ -632,19 +783,20 @@ cluster_track_kernel(const float2* __restrict__ window,
     cluster.sync();
 
     if (warp == 0) {
-      // lane j < 2T adds tap j over the ranks, then the warps, in order
+      // lane j < NT adds sum j over the ranks, then the warps, in order
       float v = 0.0f;
-      if (lane < 2 * T) {
+      if (lane < NT) {
         for (int q = 0; q < ranks; ++q) {
           const float* part = cluster.map_shared_rank(&s_part[it & 1][0][0], q);
-          for (int w = 0; w < NCW; ++w) v += part[w * 2 * T + lane];
+          for (int w = 0; w < NCW; ++w) v += part[w * NT + lane];
         }
       }
-      float taps[2 * T];
+      float taps[NT];
 #pragma unroll
-      for (int j = 0; j < 2 * T; ++j)
+      for (int j = 0; j < NT; ++j)
         taps[j] = __shfl_sync(0xffffffffu, v, j);
-      loop.close(st, P, taps, (rank == 0 && lane == 0) ? s_row : nullptr);
+      loop.close(st, P, taps, (rank == 0 && lane == 0) ? s_row : nullptr,
+                 s_sec, s_sec + SEC_MAX);
       period_geometry(st, P);
       if (lane == 0) s_geo = geo_of(st, P);
       if (rank == 0) {
@@ -660,21 +812,44 @@ cluster_track_kernel(const float2* __restrict__ window,
   cluster.sync();
 }
 
+// cudaSuccess when a CTA of `kernel` with `smem` bytes of dynamic shared
+// memory fits the card's opt-in limit per block (227 KB on an H100), and
+// then allows it past 48 KB; cudaErrorInvalidValue when it does not fit.
+// *need (if set) gets the CTA's whole shared memory, *limit the limit.
+template <class K>
+cudaError_t allow_smem(K* kernel, size_t smem, int* need = nullptr,
+                       int* limit = nullptr) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return e;
+  int dev = 0, optin = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return e;
+  const size_t total = smem + fa.sharedSizeBytes;
+  if (need != nullptr) *need = (int)total;
+  if (limit != nullptr) *limit = optin;
+  if (total > (size_t)optin) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024)
+    return cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem);
+  return cudaSuccess;
+}
+
 // The launch configuration of cluster_track_kernel<Loop, INTERP>: grid
-// c * ranks, clusters of `ranks`, the ring and a code_len-chip table in
-// dynamic shared memory (allowed past 48 KB here).
+// c * ranks, clusters of `ranks`, the ring and the tables in dynamic shared
+// memory (allowed past 48 KB here); *err is cudaErrorInvalidValue when
+// they do not fit.
 template <class Loop, bool INTERP>
 cudaLaunchConfig_t cluster_config(int c, int ranks, const RingShape& R,
                                   const Params& P, cudaStream_t stream,
                                   cudaLaunchAttribute* attr,
                                   cudaError_t* err) {
-  const size_t smem = (size_t)2 * R.slotw * sizeof(float2)
-                      + (size_t)P.code_len * sizeof(float);
-  *err = cudaSuccess;
-  if (smem > 48 * 1024)
-    *err = cudaFuncSetAttribute(cluster_track_kernel<Loop, INTERP>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem);
+  const size_t smem = track_smem_bytes(R, P.code_len, Loop::PILOT);
+  *err = allow_smem(cluster_track_kernel<Loop, INTERP>, smem);
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = ranks;
   attr->val.clusterDim.y = 1;
@@ -707,7 +882,8 @@ cudaError_t cluster_launch(const float2* window, const float* codes,
 }
 
 // How many clusters of `ranks` CTAs (slices of `width` samples, a
-// P.code_len-chip table) the card holds at once, into *n.
+// P.code_len-chip table) the card holds at once, into *n: 0 when one CTA's
+// shared memory passes the card's limit.
 template <class Loop, bool INTERP>
 cudaError_t cluster_max(int c, int ranks, int width, const Params& P,
                         int* n) {
@@ -715,6 +891,10 @@ cudaError_t cluster_max(int c, int ranks, int width, const Params& P,
   cudaError_t e;
   const cudaLaunchConfig_t cfg = cluster_config<Loop, INTERP>(
       c, ranks, ring_shape(width), P, 0, &attr, &e);
+  if (e == cudaErrorInvalidValue) {
+    *n = 0;
+    return cudaSuccess;
+  }
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveClusters(n, cluster_track_kernel<Loop, INTERP>,
                                         &cfg);

@@ -136,6 +136,7 @@ __device__ void close_simple(SimpleState& s, const Params& P,
 template <int NT>
 struct SimpleLoop {
   static constexpr int T = NT;
+  static constexpr bool PILOT = false;
   using St = SimpleState;
   Filter pll, dll;
   // no enabled gating: every channel advances
@@ -155,7 +156,7 @@ struct SimpleLoop {
     s.dll_i2 = sc[9];
   }
   __device__ void close(St& s, const Params& P, const float* taps,
-                        float* row) const {
+                        float* row, const float*, const float*) const {
     close_simple<NT>(s, P, pll, dll, taps, row);
   }
 };

@@ -146,6 +146,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i,         # C, K, n_max
         p, i,            # params (host f32 [16]), num_taps
         i, i, i,         # pll_order, dll_order, interp_code
+        i,               # track_pilot
+        p, p, p,         # dcodes (f32 [C, code_len]), sec_p, sec_d
+        p,               # sec (host int32 [5]): widths, lengths, lcm
     ]
     lib.gnss_track_full.argtypes = fused + [p]            # stream
     lib.gnss_track_full.restype = i
@@ -156,10 +159,20 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gnss_track_blocked.restype = i
     lib.gnss_track_blocked_max_clusters.argtypes = [
         i, i, i, i,      # C, code_len, n_max, interp_code
+        i, i,            # num_taps, track_pilot
         i, i,            # cluster size, slice width
         ctypes.POINTER(ctypes.c_int),   # out: clusters resident at once
     ]
     lib.gnss_track_blocked_max_clusters.restype = i
+    for entry in ("gnss_track_blocked_smem", "gnss_track_full_smem"):
+        fn = getattr(lib, entry)
+        fn.argtypes = [
+            i, i, i, i,  # code_len, interp_code, num_taps, track_pilot
+            i,           # slice width (K1) or n_max (K2)
+            ctypes.POINTER(ctypes.c_int),   # out: bytes a CTA needs
+            ctypes.POINTER(ctypes.c_int),   # out: the card's limit
+        ]
+        fn.restype = i
     lib.gnss_correlator.argtypes = [
         p, i,            # x (float2 [C, N]), N
         p, p, i, i,      # codes, dcodes (f32 [C, Q*128]), Q*128, code_len

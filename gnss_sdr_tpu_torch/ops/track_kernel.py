@@ -10,9 +10,11 @@ output rows are K1's (``ops/track_kernel_blocked.py``): a complex64 window
 is float32 [C, K, 128]. Only the mapping of the loop onto the card
 differs, so K2's plain version is K1's, ``track_blocked_plain``.
 ``tracking/fused.py`` selects K2 when ``GNSS_SDR_TPU_FUSED=perchannel``.
-Modes: T = 3 taps, PLL/DLL orders 1-3, FLL assist, the atan2 flag,
-extended integration and both replica forms. Pilot/secondary tracking,
-FDMA and T = 5 raise ``NotImplementedError``, as for K1.
+Modes: K1's: T = 3 or 5 taps, PLL/DLL orders 1-3, FLL assist, the atan2
+flag, extended integration, both replica forms and the pilot mode with its
+data code and secondary tables; FDMA raises ``NotImplementedError``, as for
+K1. A CTA holds a whole period's ring and the tables in shared memory; a
+shape past the card's limit raises ``ValueError``.
 
 **K4**, the simple fused tracker, is the counterpart of
 ``make_fused_tracker`` (``track_kernel.py:107-432``): K periods of the
@@ -72,6 +74,7 @@ from gnss_sdr_tpu_torch.ops.track_kernel_blocked import (
     BlockedSpec,
     check_inputs,
     check_layout,
+    check_smem,
     launch_entry,
     launch_shape,
     make_blocked_spec,
@@ -103,24 +106,30 @@ def make_full_spec(n_periods: int, n_max: int, code_len: int, tap_offsets,
                        for f in dataclasses.fields(spec)})
 
 
-def track_full(window, codes, scalars, pos, spec: BlockedSpec) -> torch.Tensor:
-    """K2 on CUDA tensors, the plain version on CPU tensors."""
-    check_inputs(window, codes, scalars, pos, spec)
+def track_full(window, codes, scalars, pos, spec: BlockedSpec, dcodes=None,
+               sec_p=None, sec_d=None) -> torch.Tensor:
+    """K2 on CUDA tensors, the plain version on CPU tensors; the pilot
+    tables as for ``track_blocked``."""
+    check_inputs(window, codes, scalars, pos, spec, dcodes, sec_p, sec_d)
     if window.device.type == "cpu":
-        return track_full_plain(window, codes, scalars, pos, spec)
+        return track_full_plain(window, codes, scalars, pos, spec, dcodes,
+                                sec_p, sec_d)
     if window.device.type != "cuda":
         raise ValueError(f"unsupported device {window.device}")
     out = torch.empty((scalars.shape[0], spec.n_periods, LANES),
                       dtype=torch.float32, device=window.device)
-    launch(window, codes, scalars, pos, spec, out)
+    launch(window, codes, scalars, pos, spec, out, dcodes, sec_p, sec_d)
     return out
 
 
 def launch(window, codes, scalars, pos, spec: BlockedSpec,
-           out: torch.Tensor) -> None:
+           out: torch.Tensor, dcodes=None, sec_p=None, sec_d=None) -> None:
     """Launch K2 on checked CUDA inputs into ``out`` [C, K, 128], on the
-    current stream, without synchronising."""
-    launch_entry("gnss_track_full", window, codes, scalars, pos, spec, out)
+    current stream, without synchronising. Raises ``ValueError`` when a CTA
+    needs more shared memory than the card has."""
+    check_smem(window.device, "gnss_track_full_smem", spec, spec.n_max)
+    launch_entry("gnss_track_full", window, codes, scalars, pos, spec, out,
+                 (dcodes, sec_p, sec_d))
     track_full.launches += 1
 
 

@@ -6,10 +6,21 @@ closed-loop DLL/PLL(/FLL) tracking for C channels. Per period and channel:
 the period length from the code NCO, carrier wipeoff, the
 soft-interpolated replica at T taps, coherent accumulation over
 ``integ_len`` periods, and at each integration boundary the Costas/atan2
-PLL with FLL assist, the early-minus-late DLL, order 1-3 loop filters with
-per-channel bandwidths, and the carrier-aided code NCO. The scalar input
-slots and output lanes are those of ``ops/slots.py``; the output is
-float32 [C, K, 128], one row per channel and period.
+PLL with FLL assist, the early-minus-late DLL (NELP at T = 3, VEML at
+T = 5), order 1-3 loop filters with per-channel bandwidths, and the
+carrier-aided code NCO. The scalar input slots and output lanes are those
+of ``ops/slots.py``; the output is float32 [C, K, 128], one row per
+channel and period.
+
+Pilot mode (``track_pilot``, the TPU kernel's :483-529): the chip table is
+the pilot code; a data code table [C, L] feeds one more correlation at
+offset 0, the data prompt; once a channel's secondary is engaged (slot
+``S_SEC_ACT``) each period's taps are wiped by the pilot secondary chip
+``sec_p[c, sec_idx mod sec_len_pilot]`` and the data prompt by
+``sec_d[c, sec_idx mod sec_len_data]``; the secondary index runs modulo
+``sec_lcm`` and the data accumulator (lanes 32-35) closes a symbol every
+``sec_len_data`` periods. ``sec_p`` and ``sec_d`` are float32 [C, w] with
+the sequence's length <= w <= 128.
 
 ``track_blocked`` launches ``csrc/track_blocked.cu`` for CUDA tensors and
 runs ``track_blocked_plain`` for CPU tensors; it never falls back from one
@@ -26,9 +37,11 @@ spread of positions applies. Lane ``LANE_POS`` still carries the position
 as float32, as in the TPU kernel; the fused engine takes positions from the
 exact per-period counts in lane ``LANE_N`` instead.
 
-Modes: T = 3 taps, PLL/DLL orders 1-3, FLL assist, the atan2 flag,
-extended integration and both replica forms. Pilot/secondary tracking,
-FDMA and T = 5 raise ``NotImplementedError``.
+Modes: T = 3 or 5 taps, PLL/DLL orders 1-3, FLL assist, the atan2 flag,
+extended integration, both replica forms and the pilot mode. FDMA raises
+``NotImplementedError`` (ROADMAP queue 1 item 10). A shape whose CTA needs
+more shared memory than the card has (the ring, the code tables and, in
+pilot mode, the secondary rows) raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -87,9 +100,13 @@ from gnss_sdr_tpu_torch.ops.slots import (
     S_PREV_IM,
     S_PREV_RE,
     S_REM,
+    S_SEC_ACT,
     S_SEC_IDX,
     num_scalars,
 )
+
+SEC_MAX = 128          # secondary chips a table row may hold
+FDMA_ITEM = 10         # ROADMAP queue 1 item that ports the FDMA mode
 
 
 @dataclass(frozen=True)
@@ -109,6 +126,10 @@ class BlockedSpec:
     dll_order: int = 2
     fll_bw_hz: float = 4.0
     interp_code: bool = True
+    track_pilot: bool = False
+    sec_len_pilot: int = 1
+    sec_len_data: int = 1
+    sec_lcm: int = 1
 
     @property
     def num_taps(self) -> int:
@@ -140,21 +161,28 @@ def make_blocked_spec(n_periods: int, n_max: int, code_len: int,
                       carrier_freq_hz: float, pll_order: int = 2,
                       dll_order: int = 2, fll_bw_hz: float = 4.0,
                       interp_code: bool = True, track_pilot: bool = False,
-                      fdma: bool = False) -> BlockedSpec:
+                      sec_len_pilot: int = 1, sec_len_data: int = 1,
+                      sec_lcm: int = 1, fdma: bool = False) -> BlockedSpec:
     offs = tuple(float(o) for o in np.asarray(tap_offsets, np.float32))
-    if track_pilot:
-        raise NotImplementedError("fused tracker: pilot/secondary tracking")
     if fdma:
-        raise NotImplementedError("fused tracker: FDMA carrier offsets")
-    if len(offs) != 3:
-        raise NotImplementedError(f"fused tracker: {len(offs)} taps")
+        raise NotImplementedError(
+            "fused tracker: FDMA carrier offsets (ROADMAP queue item "
+            f"{FDMA_ITEM})")
+    if len(offs) not in (3, 5):
+        raise ValueError(f"fused tracker: 3 or 5 taps, got {len(offs)}")
     for order in (pll_order, dll_order):
         if order not in (1, 2, 3):
             raise ValueError(f"loop filter order must be 1..3, got {order}")
+    sec = (int(sec_len_pilot), int(sec_len_data), int(sec_lcm))
+    if track_pilot and not (1 <= sec[0] <= SEC_MAX and 1 <= sec[1] <= SEC_MAX
+                            and sec[2] >= 1):
+        raise ValueError(f"secondary lengths must be 1..{SEC_MAX}, got {sec}")
+    if not track_pilot:
+        sec = (1, 1, 1)
     return BlockedSpec(int(n_periods), int(n_max), int(code_len), offs,
                        float(fs), float(code_rate_cps), float(carrier_freq_hz),
                        int(pll_order), int(dll_order), float(fll_bw_hz),
-                       bool(interp_code))
+                       bool(interp_code), bool(track_pilot), *sec)
 
 
 def check_layout(window, codes, scalars, code_len: int, num_scalars: int,
@@ -178,14 +206,45 @@ def check_layout(window, codes, scalars, code_len: int, num_scalars: int,
             raise ValueError("inputs must be contiguous")
 
 
-def check_inputs(window, codes, scalars, pos, spec: BlockedSpec) -> None:
+def check_pilot(codes, spec: BlockedSpec, dcodes, sec_p, sec_d) -> None:
+    """Raise unless the pilot tables are what ``spec`` takes: with
+    ``track_pilot`` the data code float32 [C, L] like ``codes`` and the
+    secondary rows float32 [C, w], sec_len <= w <= 128, on its device and
+    contiguous; without, none."""
+    tables = (dcodes, sec_p, sec_d)
+    if not spec.track_pilot:
+        if any(t is not None for t in tables):
+            raise ValueError("pilot tables given to a spec without "
+                             "track_pilot")
+        return
+    if any(t is None for t in tables):
+        raise ValueError("track_pilot needs dcodes, sec_p and sec_d")
+    c = codes.shape[0]
+    if dcodes.dtype != torch.float32 or dcodes.shape != codes.shape:
+        raise ValueError(f"dcodes must be float32 [C, {spec.code_len}]")
+    for name, t, n in (("sec_p", sec_p, spec.sec_len_pilot),
+                       ("sec_d", sec_d, spec.sec_len_data)):
+        if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[0] != c
+                or not n <= t.shape[1] <= SEC_MAX):
+            raise ValueError(f"{name} must be float32 [C, w], "
+                             f"{n} <= w <= {SEC_MAX}")
+    for t in tables:
+        if t.device != codes.device:
+            raise ValueError("all inputs must be on one device")
+        if not t.is_contiguous():
+            raise ValueError("inputs must be contiguous")
+
+
+def check_inputs(window, codes, scalars, pos, spec: BlockedSpec,
+                 dcodes=None, sec_p=None, sec_d=None) -> None:
     """Raise unless the inputs are what K1 and K2 take (dtypes, shapes,
-    one device, contiguous) and every enabled channel's K periods lie
-    inside the window."""
+    one device, contiguous, the pilot tables with ``track_pilot``) and
+    every enabled channel's K periods lie inside the window."""
     c = scalars.shape[0]
     if pos.dtype != torch.int32 or tuple(pos.shape) != (c,):
         raise ValueError("pos must be int32 [C]")
     check_layout(window, codes, scalars, spec.code_len, spec.num_scalars, pos)
+    check_pilot(codes, spec, dcodes, sec_p, sec_d)
     # enabled channels read up to pos + K * n_max (one device read)
     en = scalars[:, S_EN] > 0.5
     p = pos.to(torch.int64)
@@ -253,7 +312,7 @@ def period_geometry(rem, dcode, inv_fs, nominal_step, c0, spcf, n_max: int):
 
 
 def tap_sums(window, codes, posi, n, rem, code_step, phase0, dstep, offs,
-             interp_code: bool, n_max: int) -> list:
+             interp_code: bool, n_max: int, dcodes=None) -> list:
     """One period's tap sums [re_0, im_0, re_1, ...] per channel
     (``csrc/track_loop.cuh::accumulate_staged``): the samples at
     ``posi + k`` for k < n (zeros outside the window), wiped off at the
@@ -261,7 +320,8 @@ def tap_sums(window, codes, posi, n, rem, code_step, phase0, dstep, offs,
     code phase ``rem + code_step * k + offs[t]``; both ramps rounded once.
     The replica's ramp weight multiplies by ``1 / code_step``, computed once
     a period, as the kernels do, where the TPU kernels divide by the step
-    per tap."""
+    per tap. With ``dcodes`` two more sums follow: the data code's replica
+    at offset 0 (the data prompt)."""
     dev = window.device
     f32 = torch.float32
     w_len = window.shape[0]
@@ -283,27 +343,45 @@ def tap_sums(window, codes, posi, n, rem, code_step, phase0, dstep, offs,
     wi = (xi * cw - xr * sw) * mask
     cph = _fma(code_step[:, None], kf[None, :], rem[:, None])
     inv_step = (1.0 / code_step)[:, None]
-    taps = []
-    for off in offs:
-        tap_ph = cph + off
+
+    def replica(table, tap_ph):
         if interp_code:
             fl = torch.floor(tap_ph + 0.5)
             m = wrap_code_index(fl.to(torch.int64), length)
-            cur = torch.gather(codes, 1, m)
-            prev = torch.gather(codes, 1, torch.where(m == 0, length - 1,
+            cur = torch.gather(table, 1, m)
+            prev = torch.gather(table, 1, torch.where(m == 0, length - 1,
                                                       m - 1))
             wgt = torch.clamp((tap_ph - fl) * inv_step + 0.5, 0.0, 1.0)
-            v = prev + (cur - prev) * wgt
-        else:
-            m = wrap_code_index(torch.floor(tap_ph).to(torch.int64), length)
-            v = torch.gather(codes, 1, m)
+            return prev + (cur - prev) * wgt
+        m = wrap_code_index(torch.floor(tap_ph).to(torch.int64), length)
+        return torch.gather(table, 1, m)
+
+    taps = []
+    for table, tap_ph in ([(codes, cph + off) for off in offs]
+                          + ([(dcodes, cph)] if dcodes is not None else [])):
+        v = replica(table, tap_ph)
         taps.append((wr * v).sum(1))
         taps.append((wi * v).sum(1))
     return taps
 
 
-def track_blocked_plain(window, codes, scalars, pos,
-                        spec: BlockedSpec) -> torch.Tensor:
+def fmod_period(x: torch.Tensor, m: int) -> torch.Tensor:
+    """x mod m for the float32 secondary counter, as the kernels compute it
+    (``x - m * floor(x / m)``, ``csrc/track_loop.cuh::fmod_period``)."""
+    mf = torch.tensor(np.float32(m), device=x.device)
+    return x - mf * torch.floor(x / mf)
+
+
+def secondary_chip(table: torch.Tensor, sec_idx: torch.Tensor,
+                   period: int) -> torch.Tensor:
+    """Each channel's secondary chip ``table[c, sec_idx mod period]``."""
+    idx = fmod_period(sec_idx, period).to(torch.int64)
+    return torch.gather(table, 1, idx[:, None])[:, 0]
+
+
+def track_blocked_plain(window, codes, scalars, pos, spec: BlockedSpec,
+                        dcodes=None, sec_p=None,
+                        sec_d=None) -> torch.Tensor:
     """Plain PyTorch version of K1: a loop over the K periods, vectorised
     over channels, in the kernel's float32 formulas."""
     dev = window.device
@@ -331,6 +409,8 @@ def track_blocked_plain(window, codes, scalars, pos,
         return scalars[:, s].clone()
 
     eng = scalars[:, S_EN] > 0.5
+    sec_act = scalars[:, S_SEC_ACT] > 0.5
+    one = const(1.0)
     integ_len = col(S_INTEG_LEN)
     atan2_on = scalars[:, S_ATAN2] > 0.5
     fll_on = scalars[:, S_FLL] > 0.5
@@ -358,11 +438,28 @@ def track_blocked_plain(window, codes, scalars, pos,
                                               nominal_step, c0, spcf, n_max)
         ni = n.to(torch.int64)
         taps = tap_sums(window, codes, posi, n, rem, code_step, phase0,
-                        dphase_hz * doppler, offs, spec.interp_code, n_max)
-        d_re, d_im = taps[2 * p], taps[2 * p + 1]
+                        dphase_hz * doppler, offs, spec.interp_code, n_max,
+                        dcodes if spec.track_pilot else None)
 
-        # ---- coherent accumulation --------------------------------------
-        acc = [a + tv for a, tv in zip(acc, taps)]
+        # ---- coherent accumulation (secondary wipeoff in pilot mode) ----
+        if spec.track_pilot:
+            sp, sd = spec.sec_len_pilot, spec.sec_len_data
+            wipe_p = (torch.where(sec_act, secondary_chip(sec_p, sec_idx, sp),
+                                  one) if sp > 1 else one)
+            wipe_d = (torch.where(sec_act, secondary_chip(sec_d, sec_idx, sd),
+                                  one) if sd > 1 else one)
+            d_re, d_im = taps[2 * t] * wipe_d, taps[2 * t + 1] * wipe_d
+            acc = [a + tv * wipe_p for a, tv in zip(acc, taps[:2 * t])]
+            data_boundary = ((fmod_period(sec_idx, sd) == float(sd - 1)) & eng
+                             if sd > 1 else eng)
+            sec_next = torch.where(eng, fmod_period(sec_idx + 1.0,
+                                                    spec.sec_lcm), sec_idx)
+        else:
+            d_re, d_im = taps[2 * p], taps[2 * p + 1]
+            acc = [a + tv for a, tv in zip(acc, taps)]
+            data_boundary = eng
+            sec_n = sec_idx + 1.0
+            sec_next = torch.where(eng, sec_n - torch.floor(sec_n), sec_idx)
         acc_n_new = acc_n + n
         icount_new = torch.where(eng, icount + 1.0, zero)
         boundary = (icount_new >= integ_len) & eng
@@ -370,10 +467,7 @@ def track_blocked_plain(window, codes, scalars, pos,
         accd_re_new = accd_re + d_re
         accd_im_new = accd_im + d_im
         accd_cnt_new = accd_cnt + 1.0
-        data_boundary = eng
         dbf = data_boundary.to(f32)
-        sec_n = sec_idx + 1.0
-        sec_next = torch.where(eng, sec_n - torch.floor(sec_n), sec_idx)
 
         # ---- discriminators on the accumulated taps ---------------------
         t_int = acc_n_new * inv_fs
@@ -389,6 +483,11 @@ def track_blocked_plain(window, codes, scalars, pos,
         l_re, l_im = acc[2 * (p + 1)], acc[2 * (p + 1) + 1]
         e_mag = torch.sqrt(e_re * e_re + e_im * e_im)
         l_mag = torch.sqrt(l_re * l_re + l_im * l_im)
+        if t == 5:
+            # VEML: the very early and very late taps join the early and
+            # late ones
+            e_mag = e_mag + torch.sqrt(acc[0] * acc[0] + acc[1] * acc[1])
+            l_mag = l_mag + torch.sqrt(acc[8] * acc[8] + acc[9] * acc[9])
         code_err = const(0.5) * (e_mag - l_mag) / torch.maximum(
             e_mag + l_mag, const(1e-20))
 
@@ -474,31 +573,36 @@ def track_blocked_plain(window, codes, scalars, pos,
     return out
 
 
-def track_blocked(window, codes, scalars, pos,
-                  spec: BlockedSpec) -> torch.Tensor:
-    """K1 on CUDA tensors, the plain version on CPU tensors."""
-    check_inputs(window, codes, scalars, pos, spec)
+def track_blocked(window, codes, scalars, pos, spec: BlockedSpec,
+                  dcodes=None, sec_p=None, sec_d=None) -> torch.Tensor:
+    """K1 on CUDA tensors, the plain version on CPU tensors; the pilot
+    tables (``dcodes``, ``sec_p``, ``sec_d``) with ``spec.track_pilot``."""
+    check_inputs(window, codes, scalars, pos, spec, dcodes, sec_p, sec_d)
     if window.device.type == "cpu":
-        return track_blocked_plain(window, codes, scalars, pos, spec)
+        return track_blocked_plain(window, codes, scalars, pos, spec, dcodes,
+                                   sec_p, sec_d)
     if window.device.type != "cuda":
         raise ValueError(f"unsupported device {window.device}")
     out = torch.empty((scalars.shape[0], spec.n_periods, LANES),
                       dtype=torch.float32, device=window.device)
-    launch(window, codes, scalars, pos, spec, out)
+    launch(window, codes, scalars, pos, spec, out, dcodes, sec_p, sec_d)
     return out
 
 
 def launch(window, codes, scalars, pos, spec: BlockedSpec,
-           out: torch.Tensor) -> None:
+           out: torch.Tensor, dcodes=None, sec_p=None, sec_d=None) -> None:
     """Launch K1 on checked CUDA inputs into ``out`` [C, K, 128], on the
     current stream, without synchronising; ``track_blocked.cluster`` keeps
-    the cluster size R of the last launch."""
+    the cluster size R of the last launch. Raises ``ValueError`` when a CTA
+    of the chosen shape needs more shared memory than the card has."""
     c = scalars.shape[0]
+    mode = (spec.code_len, spec.n_max, int(spec.interp_code), spec.num_taps,
+            int(spec.track_pilot))
     r, width = launch_shape(window.device, c, spec.n_max,
-                            "gnss_track_blocked_max_clusters", c,
-                            spec.code_len, spec.n_max, int(spec.interp_code))
+                            "gnss_track_blocked_max_clusters", c, *mode)
+    check_smem(window.device, "gnss_track_blocked_smem", spec, width)
     launch_entry("gnss_track_blocked", window, codes, scalars, pos, spec, out,
-                 r, width)
+                 (dcodes, sec_p, sec_d), r, width)
     track_blocked.cluster = r
     track_blocked.launches += 1
 
@@ -512,12 +616,42 @@ def sm_count(device: torch.device) -> int:
 @functools.lru_cache(maxsize=128)
 def _max_clusters(entry: str, device: torch.device, *args: int) -> int:
     """The card's count of clusters resident at once, as the C entry point
-    ``entry`` answers it for ``args`` (``cudaOccupancyMaxActiveClusters``)."""
+    ``entry`` answers it for ``args`` (``cudaOccupancyMaxActiveClusters``;
+    0 when a CTA does not fit)."""
     n = ctypes.c_int(0)
     with torch.cuda.device(device):
         rc = getattr(_build.library(), entry)(*args, ctypes.byref(n))
     _build.check(rc, entry)
     return n.value
+
+
+@functools.lru_cache(maxsize=128)
+def smem_need(entry: str, device: torch.device, *args: int) -> tuple[int, int]:
+    """(bytes of shared memory one CTA needs, the card's limit per block),
+    as the C entry point ``entry`` answers them for ``args``."""
+    need, limit = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = getattr(_build.library(), entry)(*args, ctypes.byref(need),
+                                              ctypes.byref(limit))
+    if rc != 0 and not 0 < limit.value < need.value:
+        _build.check(rc, entry)
+    return need.value, limit.value
+
+
+def check_smem(device: torch.device, entry: str, spec: BlockedSpec,
+               extent: int) -> None:
+    """Raise ``ValueError`` unless one CTA of K1 (slices of ``extent``
+    samples) or K2 (periods of ``extent`` samples) fits the card's shared
+    memory: the ring, the code table and, in pilot mode, the data code and
+    the secondary rows."""
+    need, limit = smem_need(entry, device, spec.code_len,
+                            int(spec.interp_code), spec.num_taps,
+                            int(spec.track_pilot), extent)
+    if need > limit:
+        raise ValueError(
+            f"{entry}: a CTA needs {need} B of shared memory for "
+            f"{extent} samples and {spec.code_len}-unit tables"
+            f"{' (pilot)' if spec.track_pilot else ''}; the card has {limit}")
 
 
 def launch_shape(device: torch.device, c: int, n_max: int, entry: str,
@@ -532,10 +666,12 @@ def launch_shape(device: torch.device, c: int, n_max: int, entry: str,
 
 
 def launch_entry(entry: str, window, codes, scalars, pos,
-                 spec: BlockedSpec, out: torch.Tensor, *shape: int) -> None:
+                 spec: BlockedSpec, out: torch.Tensor, pilot=(None,) * 3,
+                 *shape: int) -> None:
     """Call the C entry point ``entry`` of the kernel library (K2's
     ``gnss_track_full``, or K1's ``gnss_track_blocked``, which also takes
-    its cluster ``shape``, (R, S)); raises if the launch fails."""
+    its cluster ``shape``, (R, S)), with the pilot tables ``pilot`` =
+    (dcodes, sec_p, sec_d) in pilot mode; raises if the launch fails."""
     c = scalars.shape[0]
     k = spec.constants()
     params = [k["inv_fs"], k["nominal_step"], k["aid_ratio"], k["w0f"],
@@ -543,6 +679,14 @@ def launch_entry(entry: str, window, codes, scalars, pos,
               *spec.tap_offsets]
     params += [0.0] * (16 - len(params))
     hp = (ctypes.c_float * 16)(*[float(v) for v in params])
+    dcodes, sec_p, sec_d = pilot
+    tables = [0, 0, 0]
+    sec = (ctypes.c_int * 5)(1, 1, 1, 1, 1)
+    if spec.track_pilot:
+        tables = [dcodes.data_ptr(), sec_p.data_ptr(), sec_d.data_ptr()]
+        sec = (ctypes.c_int * 5)(sec_p.shape[1], sec_d.shape[1],
+                                 spec.sec_len_pilot, spec.sec_len_data,
+                                 spec.sec_lcm)
     fn = getattr(_build.library(), entry)
     with torch.cuda.device(window.device):
         stream = torch.cuda.current_stream(window.device).cuda_stream
@@ -550,7 +694,8 @@ def launch_entry(entry: str, window, codes, scalars, pos,
                 spec.code_len, scalars.data_ptr(), spec.num_scalars,
                 pos.data_ptr(), out.data_ptr(), c, spec.n_periods,
                 spec.n_max, hp, spec.num_taps, spec.pll_order,
-                spec.dll_order, int(spec.interp_code), *shape, stream)
+                spec.dll_order, int(spec.interp_code),
+                int(spec.track_pilot), *tables, sec, *shape, stream)
     _build.check(rc, entry)
 
 

@@ -3,7 +3,8 @@
 Counterpart of ``gnss_sdr_tpu/receiver/factory.py``, with the same
 implementation-string tables, property names and defaults. What the port
 does not carry yet raises ``NotImplementedError`` naming its ROADMAP queue
-item: plans that ``receiver/plans.py`` lacks (every signal but GPS L1 C/A),
+item: plans that ``receiver/plans.py`` lacks (every signal but GPS L1 C/A
+and Galileo E1),
 the SignalGenerator source, and the beamformer; the conditioner raises for
 its filters and resamplers, and the receiver for acquisition and tracking
 variants other than PCPS and DLL/PLL. The conditioner runs on ``device``
@@ -68,8 +69,7 @@ class UnknownImplementation(ValueError):
     pass
 
 
-# plans receiver/plans.py does not have yet -> ROADMAP queue item
-_PLAN_QUEUE_ITEM = {"1B": 9}
+# the ROADMAP queue item that ports the plans receiver/plans.py lacks
 _LATER_PLANS_ITEM = 10
 
 
@@ -589,10 +589,9 @@ def get_signal_plan(cfg: ConfigurationInterface, sig: str, fs: float,
 
     make = getattr(plan_mod, factory_name, None)
     if make is None:
-        item = _PLAN_QUEUE_ITEM.get(sig, _LATER_PLANS_ITEM)
         raise NotImplementedError(
             f"Channels_{sig}: {factory_name} is not ported yet (ROADMAP "
-            f"queue item {item})")
+            f"queue item {_LATER_PLANS_ITEM})")
     kwargs = dict(fs=fs, num_channels=num_channels)
 
     def opt(key: str, prop: str, typed_default):
@@ -673,9 +672,14 @@ def get_signal_plan(cfg: ConfigurationInterface, sig: str, fs: float,
     engine = _ACQ_ENGINE_BY_IMPL.get(acq_impl)
     if engine is not None:
         plan.acq_engine = engine
-        # (the CCCWSR engine's Galileo chip table is built with the E1 plan,
-        # which is not ported)
-        if engine == "tong":
+        if engine == "cccwsr":
+            import numpy as _np
+
+            from gnss_sdr_tpu_torch.codes.galileo_e1 import galileo_e1b_code
+
+            plan.acq_engine_params["chips_table"] = _np.stack(
+                [galileo_e1b_code(p) for p in plan.search_prns])
+        elif engine == "tong":
             plan.acq_engine_params.setdefault(
                 "tong_init", cfg.property(f"Acquisition_{sig}.tong_init_val", 1))
             plan.acq_engine_params.setdefault(

@@ -1,10 +1,14 @@
 """Signal plans: everything the receiver needs to run one signal type.
 
-Counterpart of ``gnss_sdr_tpu/receiver/plans.py`` (``SignalPlan`` and
-``gps_l1ca_plan``; the other signals are not ported yet). A plan bundles
+Counterpart of ``gnss_sdr_tpu/receiver/plans.py`` (``SignalPlan``,
+``gps_l1ca_plan``, ``galileo_e1b_plan`` and ``galileo_e1bc_plan``; the
+other signals are not ported yet, ROADMAP queue item 10). A plan bundles
 the per-signal pieces the reference spreads across an adapter triple
 (Acq/Trk/Tlm) plus the code tables: the engines are built per plan, and
-the channels of a plan are one batch on the device.
+the channels of a plan are one batch on the device. BOC signals use
+subcarrier-expanded code tables (table units = sub-chips): all tracking
+code-phase quantities are then in table units, and ``table_rate_cps``
+converts them to seconds for the observables.
 """
 
 from __future__ import annotations
@@ -15,18 +19,27 @@ from typing import Callable
 import numpy as np
 
 from gnss_sdr_tpu_torch.acquisition import AcqConfig
+from gnss_sdr_tpu_torch.codes.galileo_e1 import (
+    SINBOC_TABLE_LENGTH,
+    SINBOC_TABLE_RATE_CPS,
+    e1c_secondary_chips,
+    galileo_e1b_sinboc_table,
+    galileo_e1c_sinboc_table,
+)
 from gnss_sdr_tpu_torch.codes.gps_l1_ca import gps_l1_ca_code_table
+from gnss_sdr_tpu_torch.constants import galileo_e1 as GAL
 from gnss_sdr_tpu_torch.constants import gps_l1_ca as GPS
+from gnss_sdr_tpu_torch.telemetry.inav import InavDecoder
 from gnss_sdr_tpu_torch.telemetry.lnav import LnavDecoder
 from gnss_sdr_tpu_torch.tracking import DllPllConf
 
 
 @dataclass
 class SignalPlan:
-    name: str                      # reference signal id: "1C", ...
-    system: str                    # 'G'
+    name: str                      # reference signal id: "1C", "1B", ...
+    system: str                    # 'G', 'E'
     num_channels: int
-    code_table: np.ndarray         # [P, table_length]
+    code_table: np.ndarray         # [P, table_length] (PILOT code if pilot plan)
     table_rate_cps: float          # table units per second
     carrier_freq_hz: float
     code_period_s: float
@@ -37,7 +50,13 @@ class SignalPlan:
     prn_row: Callable[[int], int] = lambda prn: prn - 1
     # band key: plans sharing a band consume the same sample stream
     band: str = "L1"
-    # acquisition searches this table when set
+    # pilot-tracking plans (track_pilot): data-component code + secondaries
+    data_code_table: np.ndarray | None = None   # [P, table_length]
+    sec_pilot_table: np.ndarray | None = None   # [P, sec_len_pilot] +-1
+    sec_data_levels: np.ndarray | None = None   # [sec_len_data] +-1
+    # acquisition searches this table when set (pilot plans may acquire on
+    # the data code: same chip boundaries, no secondary ambiguity inside
+    # one period)
     acq_code_table: np.ndarray | None = None
     # per-block binary dumps (not carried by the port yet)
     dump_filename: str | None = None
@@ -124,4 +143,187 @@ def gps_l1ca_plan(
         ),
         make_decoder=LnavDecoder,
         search_prns=search_prns,
+    )
+
+
+def _rs_inav(prn: int):
+    """InavDecoder with FEC2 CED assembly enabled (reference
+    TelemetryDecoder_1B.enable_reed_solomon)."""
+    d = InavDecoder(prn)
+    d.enable_reed_solomon()
+    return d
+
+
+def galileo_e1b_plan(
+    fs: float,
+    num_channels: int = 8,
+    doppler_max_hz: float = 5000.0,
+    doppler_step_hz: float = 125.0,
+    acq_pfa: float = 1e-3,
+    pll_bw_hz: float = 15.0,
+    dll_bw_hz: float = 2.0,
+    pll_bw_narrow_hz: float = 7.5,
+    dll_bw_narrow_hz: float = 0.5,
+    enable_fll_pull_in: bool = True,
+    fll_bw_hz: float = 4.0,
+    pull_in_time_s: float = 0.5,
+    early_late_space_chips: float = 0.25,
+    search_prns: tuple = tuple(range(1, 37)),
+    enable_reed_solomon: bool = False,
+    steps_per_block: int | None = None,
+) -> SignalPlan:
+    """Galileo E1-B data channel with a sinBOC(1,1) replica
+    (reference adapters Galileo_E1_PCPS_Ambiguous_Acquisition /
+    Galileo_E1_DLL_PLL_VEML_Tracking / Galileo_E1B_Telemetry_Decoder).
+
+    Table units are sinBOC sub-chips (2 per primary chip, 2.046 Mcps):
+    spacing/code-phase parameters are converted here so plan users think in
+    primary chips. The 4 ms symbol equals one code period, so tracking runs
+    with extend_correlation_symbols=1 and telemetry consumes every period's
+    prompt sign (250 sym/s).
+    """
+    table = galileo_e1b_sinboc_table()
+    # BOC(1,1) has a sharp triangular peak of +-0.5 primary chips; VEML adds
+    # the very-early/late taps that disambiguate its side peaks
+    el_sub = 2.0 * early_late_space_chips
+    vel_sub = 2.0 * 0.6
+    return SignalPlan(
+        name="1B",
+        system="E",
+        num_channels=num_channels,
+        code_table=table,
+        table_rate_cps=SINBOC_TABLE_RATE_CPS,
+        carrier_freq_hz=GAL.FREQ_HZ,
+        code_period_s=GAL.CODE_PERIOD_S,
+        acq_conf=AcqConfig(
+            fs=fs,
+            code_length_chips=SINBOC_TABLE_LENGTH,
+            code_rate_cps=SINBOC_TABLE_RATE_CPS,
+            doppler_max_hz=doppler_max_hz,
+            doppler_step_hz=doppler_step_hz,
+            max_dwells=1,
+            # the 4 ms symbol can flip mid-window; double-length FFT
+            # (reference bit_transition_flag for E1) keeps one clean period
+            bit_transition_flag=True,
+            pfa=acq_pfa,
+        ),
+        trk_conf=DllPllConf(
+            fs=fs,
+            code_length_chips=SINBOC_TABLE_LENGTH,
+            code_rate_cps=SINBOC_TABLE_RATE_CPS,
+            carrier_freq_hz=GAL.FREQ_HZ,
+            early_late_spacing_chips=el_sub,
+            very_early_late_spacing_chips=vel_sub,
+            pll_bw_hz=pll_bw_hz,
+            dll_bw_hz=dll_bw_hz,
+            pll_bw_narrow_hz=pll_bw_narrow_hz,
+            dll_bw_narrow_hz=dll_bw_narrow_hz,
+            enable_fll_pull_in=enable_fll_pull_in,
+            fll_bw_hz=fll_bw_hz,
+            pull_in_time_s=pull_in_time_s,
+            extend_correlation_symbols=1,
+            codes_per_bit=1,
+            steps_per_block=steps_per_block or 8,          # 8 x 4 ms = 32 ms per device call
+            max_channels=num_channels,
+        ),
+        make_decoder=(
+            (lambda prn: _rs_inav(prn)) if enable_reed_solomon
+            else InavDecoder),
+        search_prns=search_prns,
+    )
+
+
+def galileo_e1bc_plan(
+    fs: float,
+    num_channels: int = 8,
+    doppler_max_hz: float = 5000.0,
+    doppler_step_hz: float = 125.0,
+    acq_pfa: float = 1e-3,
+    pll_bw_hz: float = 15.0,
+    dll_bw_hz: float = 2.0,
+    pll_bw_narrow_hz: float = 2.5,
+    dll_bw_narrow_hz: float = 0.35,
+    enable_fll_pull_in: bool = True,
+    fll_bw_hz: float = 4.0,
+    pull_in_time_s: float = 0.5,
+    early_late_space_chips: float = 0.25,
+    extend_correlation_symbols: int = 5,
+    search_prns: tuple = tuple(range(1, 37)),
+    enable_reed_solomon: bool = False,
+    steps_per_block: int | None = None,
+) -> SignalPlan:
+    """Galileo E1 B+C with PILOT tracking (the reference's default E1
+    configuration: Galileo_E1_DLL_PLL_VEML_Tracking with track_pilot=true,
+    dll_pll_conf.h:81): VEML taps run on the E1-C pilot, the CS25
+    secondary is wiped on-device after host sync, the PLL goes
+    four-quadrant, and coherent integration extends past the 4 ms
+    data-symbol ceiling (default 20 ms; up to the 100 ms secondary epoch —
+    each T of coherent extension narrows the Costas pull range to
+    +-1/(4T), so very long T needs a correspondingly settled loop). A
+    separate prompt correlator on E1-B feeds the I/NAV decoder."""
+    pilot_table = galileo_e1c_sinboc_table()
+    data_table = galileo_e1b_sinboc_table()
+    cs25 = e1c_secondary_chips().astype(np.float32)
+    sec_pilot = np.tile(cs25, (pilot_table.shape[0], 1))
+    el_sub = 2.0 * early_late_space_chips
+    vel_sub = 2.0 * 0.6
+    extend = min(extend_correlation_symbols, 25)
+    return SignalPlan(
+        name="1B",
+        system="E",
+        num_channels=num_channels,
+        code_table=pilot_table,
+        table_rate_cps=SINBOC_TABLE_RATE_CPS,
+        carrier_freq_hz=GAL.FREQ_HZ,
+        code_period_s=GAL.CODE_PERIOD_S,
+        acq_conf=AcqConfig(
+            fs=fs,
+            code_length_chips=SINBOC_TABLE_LENGTH,
+            code_rate_cps=SINBOC_TABLE_RATE_CPS,
+            doppler_max_hz=doppler_max_hz,
+            doppler_step_hz=doppler_step_hz,
+            max_dwells=1,
+            bit_transition_flag=True,
+            pfa=acq_pfa,
+            # two-step Doppler zoom: with 4 ms coherent periods the FLL's
+            # false-lock lines sit at +-125 Hz, and a 125 Hz primary grid
+            # leaves up to 62.5 Hz of error — exactly the watershed. The
+            # fine pass hands tracking a <16 Hz seed (reference E1 confs
+            # use make_two_steps for the same reason).
+            make_two_steps=True,
+            doppler_step2_hz=31.25,
+            num_doppler_bins_step2=4,
+        ),
+        trk_conf=DllPllConf(
+            fs=fs,
+            code_length_chips=SINBOC_TABLE_LENGTH,
+            code_rate_cps=SINBOC_TABLE_RATE_CPS,
+            carrier_freq_hz=GAL.FREQ_HZ,
+            early_late_spacing_chips=el_sub,
+            very_early_late_spacing_chips=vel_sub,
+            pll_bw_hz=pll_bw_hz,
+            dll_bw_hz=dll_bw_hz,
+            pll_bw_narrow_hz=pll_bw_narrow_hz,
+            dll_bw_narrow_hz=dll_bw_narrow_hz,
+            enable_fll_pull_in=enable_fll_pull_in,
+            fll_bw_hz=fll_bw_hz,
+            pull_in_time_s=pull_in_time_s,
+            extend_correlation_symbols=extend,
+            codes_per_bit=1,
+            track_pilot=True,
+            sec_len_pilot=25,
+            sec_len_data=1,
+            pilot_pll_atan2=True,
+            data_on_quadrature=False,
+            steps_per_block=steps_per_block or 20,
+            max_channels=num_channels,
+        ),
+        make_decoder=(
+            (lambda prn: _rs_inav(prn)) if enable_reed_solomon
+            else InavDecoder),
+        search_prns=search_prns,
+        data_code_table=data_table,
+        sec_pilot_table=sec_pilot,
+        sec_data_levels=np.ones(1, dtype=np.float32),
+        acq_code_table=data_table,
     )

@@ -1,14 +1,17 @@
 """End-to-end receiver: acquisition -> tracking -> telemetry -> observables
 -> PVT.
 
-Counterpart of ``gnss_sdr_tpu/receiver/receiver.py``, for the GPS L1 C/A
-slice. Host-side orchestration plays the roles of the reference's
+Counterpart of ``gnss_sdr_tpu/receiver/receiver.py``, for GPS L1 C/A and
+Galileo E1 (E1-B data-only, and E1-B+C with pilot tracking). Host-side
+orchestration plays the roles of the reference's
 ControlThread event loop and GNSSFlowgraph channel management around the
 batched device engines:
 
 - signals are grouped by SignalPlan; each plan owns one batched PCPS
   engine and one batched Tracker (all its channels in one device batch);
-- telemetry: per-channel LNAV decoders fed with prompt signs;
+- telemetry: per-channel decoders (LNAV, I/NAV) fed with prompt signs,
+  on pilot plans with the data component's symbols once the secondary
+  code is locked;
 - observables: one shared ObservablesEngine anchored by telemetry TOWs;
 - PVT: solve_pvt at a fixed epoch cadence.
 
@@ -17,11 +20,11 @@ acquisition, and in a rolling device buffer (``io/device_stream.py``) that
 the trackers read in place.
 
 Everything runs on ``ReceiverConfig.device`` ("cuda" by default; without a
-card that raises unless "cpu" is asked for). Options this slice does not
-carry raise ``NotImplementedError`` when switched on: multiple devices,
+card that raises unless "cpu" is asked for). Options the port does not
+carry yet raise ``NotImplementedError`` when switched on: multiple devices,
 OSNMA, PPP positioning, the PVT Kalman filter, loop-closure variants other
-than DLL/PLL, acquisition engines other than PCPS, dumps and assisted
-multi-band acquisition.
+than DLL/PLL (ROADMAP queue item 12), acquisition engines other than PCPS
+(item 11), dumps and assisted multi-band acquisition.
 """
 
 from __future__ import annotations
@@ -115,9 +118,11 @@ class SignalGroup:
     def __init__(self, plan: SignalPlan, chan_offset: int,
                  device: torch.device) -> None:
         for on, what in ((plan.acq_engine != "pcps",
-                          f"acquisition engine {plan.acq_engine!r}"),
+                          f"acquisition engine {plan.acq_engine!r} (ROADMAP "
+                          "queue item 11)"),
                          (plan.trk_engine != "dll_pll",
-                          f"tracking engine {plan.trk_engine!r}"),
+                          f"tracking engine {plan.trk_engine!r} (ROADMAP "
+                          "queue item 12)"),
                          (bool(plan.dump_filename or plan.acq_dump_filename),
                           "dumps")):
             if on:
@@ -129,7 +134,11 @@ class SignalGroup:
         self.acq = PcpsAcquisition(
             plan.acq_conf, acq_table, list(plan.search_prns),
             freq_offset_table=plan.freq_offset_table, device=device)
-        self.tracker = Tracker(plan.trk_conf, plan.code_table, device=device)
+        self.tracker = Tracker(
+            plan.trk_conf, plan.code_table,
+            data_code_table=plan.data_code_table,
+            sec_pilot_table=plan.sec_pilot_table,
+            sec_data_levels=plan.sec_data_levels, device=device)
         self.decoders: dict[int, object] = {}
         self.channel_prn = [0] * plan.num_channels
         # sub-chip code phase by stamp for TOW anchoring
@@ -447,25 +456,42 @@ class Receiver:
 
             if prn not in g.decoders:
                 continue
-            # telemetry symbols: extended-integration prompts for
-            # multi-period bits (GPS LNAV), or every period's prompt for
-            # symbol-rate signals
-            b = out["boundary"][:, ch]
-            if conf.extend_correlation_symbols > 1:
-                if ctl.phase != ChannelPhase.NARROW:
+            # telemetry symbols: pilot plans take the data component's
+            # symbols (one per sec_len_data periods, on the quadrature axis
+            # once the pilot PLL holds the carrier: reference track_pilot
+            # Prompt_Data); BPSK plans take extended-integration prompts for
+            # multi-period bits (GPS LNAV) or every period's prompt for
+            # symbol-rate signals (Galileo E1-B, 250 symbols/s)
+            if conf.track_pilot:
+                if not ctl.sec_locked:
                     continue
-                n_acc = out["acc_samples"][:, ch]
-                full = b & (
-                    n_acc > conf.samples_per_code
-                    * (conf.extend_correlation_symbols - 0.5)
-                )
+                db = out["data_boundary"][:, ch]
+                full = db & (out["data_count"][:, ch] == conf.sec_len_data)
+                if not full.any():
+                    continue
+                sym = out["data_prompt"][full, ch]
+                signs = np.sign(sym.imag if conf.data_on_quadrature
+                                else sym.real)
             else:
-                full = b
-            if not full.any():
-                continue
-            signs = np.sign(out["acc_prompt"][full, ch].real)
+                b = out["boundary"][:, ch]
+                if conf.extend_correlation_symbols > 1:
+                    if ctl.phase != ChannelPhase.NARROW:
+                        continue
+                    n_acc = out["acc_samples"][:, ch]
+                    full = b & (
+                        n_acc > conf.samples_per_code
+                        * (conf.extend_correlation_symbols - 0.5)
+                    )
+                else:
+                    full = b
+                if not full.any():
+                    continue
+                signs = np.sign(out["acc_prompt"][full, ch].real)
             stamps = result.abs_sample_end[full, ch]
-            events = g.decoders[prn].push_bits(signs, stamps)
+            dec = g.decoders[prn]
+            events = (dec.push_symbols(signs, stamps)
+                      if hasattr(dec, "push_symbols")
+                      else dec.push_bits(signs, stamps))
             for ev in events:
                 self.status.subframes += 1
                 rem = rem_map.get(int(ev["sample_stamp"]), 0.0)
@@ -484,6 +510,16 @@ class Receiver:
                         log.info("%s%02d: ephemeris complete",
                                  plan.system, prn)
                     self.ephemerides[(plan.system, prn)] = g.decoders[prn].eph
+                elif (getattr(g.decoders[prn], "reduced_ced", None)
+                      is not None
+                      and (plan.system, prn) not in self.ephemerides):
+                    # I/NAV word-16 reduced CED as a preliminary ephemeris
+                    # for a faster first fix (reference get_reduced_ced),
+                    # replaced by the full CED when it completes
+                    log.info("%s%02d: reduced CED ephemeris",
+                             plan.system, prn)
+                    self.ephemerides[(plan.system, prn)] = (
+                        g.decoders[prn].reduced_ced.compute_eph())
             # broadcast iono (LNAV SF4 page 18) feeds the solver's
             # Klobuchar model
             if events and plan.system == "G" and not self.iono.valid:

@@ -23,8 +23,12 @@ advancing, as in the JAX engine; the fused engine (``tracking/fused.py``)
 instead holds them still. Each engine keeps its own behaviour.
 
 Modes: CDMA, 3 or 5 taps, interpolated or nearest-chip replica, PLL/DLL
-orders 1-3, FLL assist, extended integration. Pilot/secondary tracking,
-FDMA and the Kalman mode raise ``NotImplementedError``.
+orders 1-3, FLL assist, extended integration, and pilot/secondary tracking
+(the taps correlate the pilot code, K3's data prompt the data code; once
+the host engages the secondary, the pilot taps and the data prompt are
+wiped by their secondary chips at the channel's secondary index). FDMA
+(ROADMAP queue item 10) and the Kalman mode (item 12) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -159,10 +163,12 @@ def tap_offsets_chips(conf: DllPllConf) -> np.ndarray:
 
 
 def check_supported(conf: DllPllConf) -> None:
-    """Raise for the modes this engine does not carry."""
-    for flag, what in ((conf.track_pilot, "pilot/secondary tracking"),
-                       (conf.fdma, "FDMA carrier offsets"),
-                       (conf.kf, "the Kalman tracking mode")):
+    """Raise for the modes this engine does not carry, naming the ROADMAP
+    queue item that ports each."""
+    for flag, what in ((conf.fdma, "FDMA carrier offsets (ROADMAP queue "
+                        "item 10)"),
+                       (conf.kf, "the Kalman tracking mode (ROADMAP queue "
+                        "item 12)")):
         if flag:
             raise NotImplementedError(f"tracking: {what}")
 
@@ -181,6 +187,10 @@ def track_block(
     state: TrackingState,
     window: torch.Tensor,       # [W] complex64 shared sample window
     codes: torch.Tensor,        # [C, L] float32 per-channel PRN chips
+                                #   (the PILOT code when conf.track_pilot)
+    data_codes: torch.Tensor | None = None,  # [C, L] data code (pilot)
+    sec_pilot: torch.Tensor | None = None,   # [C, sec_len_pilot] +-1
+    sec_data: torch.Tensor | None = None,    # [C, sec_len_data] +-1
 ) -> tuple[TrackingState, dict]:
     """Run ``conf.steps_per_block`` code periods for all channels; returns
     the new state and a dict of per-period outputs ([S, C]-shaped)."""
@@ -196,6 +206,9 @@ def track_block(
     w_len = window.shape[0]
     ki = torch.arange(n_max, dtype=torch.int64, device=dev)
     codes_q = pack_codes(codes.to(torch.float32))
+    pilot = conf.track_pilot
+    dcodes_q = pack_codes(data_codes.to(torch.float32)) if pilot else codes_q
+    sp, sd = conf.sec_len_pilot, conf.sec_len_data
     w0f = np.float32(conf.fll_bw_hz / 0.53)
 
     def const(v) -> torch.Tensor:
@@ -235,18 +248,36 @@ def track_block(
             torch.zeros_like(phase0),
             torch.zeros_like(phase0),
         ], dim=1).contiguous()
-        lanes = correlator(x, codes_q, codes_q, scalars, offsets,
+        lanes = correlator(x, codes_q, dcodes_q, scalars, offsets,
                            code_len=conf.code_length_chips,
-                           interp_code=conf.interp_code)[:, 0, :]
+                           interp_code=conf.interp_code,
+                           track_pilot=pilot)[:, 0, :]
         corr = torch.complex(lanes[:, 0:2 * t:2], lanes[:, 1:2 * t:2])
-        corr_data = corr[:, p_idx]
+        if pilot:
+            # the data code's prompt (reference d_correlator_data_cpu)
+            corr_data = torch.complex(lanes[:, 2 * t], lanes[:, 2 * t + 1])
+        else:
+            corr_data = corr[:, p_idx]
+
+        # ---- secondary-code wipeoff (once the host locks the sequence);
+        # the per-period outputs keep the unwiped taps --------------------
+        corr_acc = corr
+        if pilot and sp > 1:
+            chip_p = torch.gather(sec_pilot, 1, (st.sec_idx % sp).to(
+                torch.int64)[:, None])[:, 0]
+            corr_acc = corr * torch.where(st.sec_active, chip_p, 1.0)[:, None]
+        if pilot and sd > 1:
+            chip_d = torch.gather(sec_data, 1, (st.sec_idx % sd).to(
+                torch.int64)[:, None])[:, 0]
+            corr_data = corr_data * torch.where(st.sec_active, chip_d, 1.0)
 
         # ---- coherent accumulation ---------------------------------------
-        acc_taps = st.acc_taps + corr
+        acc_taps = st.acc_taps + corr_acc
         acc_samples = st.acc_samples + n
         integ_count = torch.where(st.enabled, st.integ_count + 1, 0).to(
             torch.int32)
         boundary = (integ_count >= st.integ_len) & st.enabled
+        # data-symbol accumulation: one symbol spans sec_len_data periods
         acc_data = st.acc_data + corr_data
         acc_data_count = st.acc_data_count + 1
         data_boundary = ((st.sec_idx % conf.sec_len_data)

@@ -13,7 +13,10 @@ the same rows.
 Beyond the launch it
 
 - packs the ``TrackingState`` into the kernel's [C, 24 + 2T + 1] scalar
-  block, with per-channel wide/narrow bandwidths and the FLL/atan2 flags;
+  block, with per-channel wide/narrow bandwidths and the FLL/atan2/
+  secondary flags; pilot plans also hand the kernel the data code table
+  and the per-channel secondary rows (``sec_p`` [C, sec_len_pilot],
+  ``sec_d`` [C, sec_len_data]);
 - rebuilds the float64 bookkeeping the observables need: the accumulated
   carrier phase as a float64 cumulative sum over the per-period (Doppler
   in force during the period, length) pairs, since the kernel carries the
@@ -73,7 +76,7 @@ from gnss_sdr_tpu_torch.tracking.dll_pll import (
 
 def fused_eligible(conf: DllPllConf) -> bool:
     """Plans the fused kernel covers; the Kalman mode keeps the eager
-    engine."""
+    engine (FDMA raises in both engines until ROADMAP queue item 10)."""
     return not conf.kf
 
 
@@ -93,7 +96,9 @@ def build_fused_engine(conf: DllPllConf) -> BlockedSpec:
         carrier_freq_hz=conf.carrier_freq_hz,
         pll_order=conf.pll_filter_order, dll_order=conf.dll_filter_order,
         fll_bw_hz=conf.fll_bw_hz, interp_code=conf.interp_code,
-        track_pilot=conf.track_pilot, fdma=conf.fdma)
+        track_pilot=conf.track_pilot, sec_len_pilot=conf.sec_len_pilot,
+        sec_len_data=conf.sec_len_data, sec_lcm=conf.sec_lcm,
+        fdma=conf.fdma)
 
 
 def _pack_scalars(conf: DllPllConf, state: TrackingState) -> torch.Tensor:
@@ -149,15 +154,19 @@ def fused_track_block(
     spec: BlockedSpec,
     state: TrackingState,
     window: torch.Tensor,       # [W] complex64 stream window
-    codes: torch.Tensor,        # [C, L] float32 chip table
+    codes: torch.Tensor,        # [C, L] float32 chip table (the pilot's
+                                #   in pilot plans)
+    data_codes: torch.Tensor | None = None,  # [C, L] data code (pilot)
+    sec_pilot: torch.Tensor | None = None,   # [C, sec_len_pilot] +-1
+    sec_data: torch.Tensor | None = None,    # [C, sec_len_data] +-1
 ) -> tuple[TrackingState, dict]:
     """One fused block: the same contract as ``dll_pll.track_block``, with
     the K-period loop inside a single launch of the spec's kernel."""
     t = conf.num_taps
     p_idx = t // 2
     run = track_full if spec.kernel == "track_full" else track_blocked
-    rows = run(window, codes, _pack_scalars(conf, state), state.pos,
-               spec)                                          # [C, K, 128]
+    rows = run(window, codes, _pack_scalars(conf, state), state.pos, spec,
+               data_codes, sec_pilot, sec_data)               # [C, K, 128]
 
     def col(lane):
         return rows[:, :, lane].T                             # [S, C]

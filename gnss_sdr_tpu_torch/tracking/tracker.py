@@ -10,7 +10,10 @@ code periods per call; between calls the host
 - runs bit synchronisation (histogram of prompt sign flips),
 - estimates C/N0 and carrier lock and counts lock failures,
 - switches channels to narrow-bandwidth extended integration after sync,
-  or flags loss of lock for the receiver.
+  or flags loss of lock for the receiver;
+- on pilot plans, acquires the pilot's secondary code from the prompt
+  signs and engages its wipeoff, the four-quadrant PLL and extended
+  integration on the device (reference acquire_secondary).
 
 Engines: the fused engine (``tracking/fused.py``, kernel K1, or K2 under
 ``GNSS_SDR_TPU_FUSED=perchannel``) and the eager engine
@@ -20,9 +23,8 @@ on the CPU; ``True`` or ``False`` forces one (``True`` on the CPU runs K1's
 plain version). ``DllPllConf`` is a verbatim copy of the TPU package's,
 whose comments describe that package's automatic choices; here
 ``pallas_correlator`` is not read (the eager engine always correlates
-through K3 or its plain version). Pilot/secondary plans, FDMA and the
-Kalman mode raise ``NotImplementedError``, so the secondary-code branch of
-the TPU package's FSM has no counterpart here.
+through K3 or its plain version). FDMA and the Kalman mode raise
+``NotImplementedError``.
 
 The TPU package falls back from its fused kernel when window positions
 would pass 2^24 (float32 sample positions) or when channel positions
@@ -81,6 +83,10 @@ class ChannelControl:
     cn0_dbhz: float = 0.0
     carrier_lock: float = 0.0
     lock_fail_blocks: int = 0
+    # pilot secondary-code sync (reference acquire_secondary)
+    sec_hist: list = field(default_factory=list)   # per-period prompt signs
+    sec_hist_start: int = 0          # period index of sec_hist[0]
+    sec_locked: bool = False
     # no loss-of-lock verdicts before this period index: mode switches
     # restart the transient clock (the reference resets its fail counters
     # on state transitions)
@@ -153,13 +159,34 @@ def outputs_to_host(outs: dict, num_taps: int) -> dict:
     return host
 
 
+def _write_channel(values: list, zero: list = ()) -> None:
+    """Set each (view, value) pair of one channel's state fields and zero
+    the views in ``zero``, on the state's device: one host-to-device copy
+    and one multi-tensor copy per dtype, one multi-tensor zero; nothing is
+    read back."""
+    groups: dict = {}
+    for dst, v in values:
+        groups.setdefault(dst.dtype, []).append((dst, v))
+    for dtype, pairs in groups.items():
+        src = torch.tensor([v for _, v in pairs], dtype=dtype,
+                           device=pairs[0][0].device)
+        torch._foreach_copy_([d for d, _ in pairs], list(src.unbind()))
+    torch._foreach_zero_(list(zero))
+
+
 class Tracker:
     """Batched multi-channel tracker with host FSM."""
 
-    def __init__(self, conf: DllPllConf, code_table: np.ndarray, *,
+    def __init__(self, conf: DllPllConf, code_table: np.ndarray,
+                 data_code_table: np.ndarray | None = None,
+                 sec_pilot_table: np.ndarray | None = None,
+                 sec_data_levels: np.ndarray | None = None, *,
                  device: str | torch.device = "cuda") -> None:
-        """code_table: [P, L] PRN chip levels. ``device`` holds the state
-        and runs the engines; "cuda" raises without a card."""
+        """code_table: [P, L] PRN chip levels (the PILOT component when
+        conf.track_pilot). Pilot plans also give the data-code table, the
+        per-PRN pilot secondary table [P, sec_len_pilot] and the shared
+        data secondary [sec_len_data]. ``device`` holds the state and runs
+        the engines; "cuda" raises without a card."""
         check_supported(conf)
         self.device = resolve_device(device)
         self.conf = conf
@@ -167,11 +194,28 @@ class Tracker:
         self.state: TrackingState = init_state(conf, self.device)
         c = conf.max_channels
         self.codes = np.zeros((c, code_table.shape[1]), dtype=np.float32)
-        self._codes_dev = None         # device copy of the code rows
+        self._codes_dev = None         # device copies of code/sec tables
         self.pos_abs = np.zeros(c, dtype=np.int64)    # absolute next sample
         self.ctl = [ChannelControl() for _ in range(c)]
         for ch in self.ctl:
             ch.bit_hist = np.zeros(conf.codes_per_bit, dtype=np.int64)
+        if conf.track_pilot:
+            if data_code_table is None or sec_pilot_table is None:
+                raise ValueError("a pilot plan needs the data-code and "
+                                 "pilot secondary tables")
+            self.data_code_table = np.asarray(data_code_table, np.float32)
+            self.sec_pilot_table = np.asarray(sec_pilot_table, np.float32)
+            self.data_codes = np.zeros_like(self.codes)
+            self.sec_pilot = np.ones((c, conf.sec_len_pilot), np.float32)
+            self.sec_data = np.ones((c, conf.sec_len_data), np.float32)
+            if sec_data_levels is not None:
+                self.sec_data[:] = np.asarray(sec_data_levels, np.float32)
+            self._sec_data_base = self.sec_data[0].copy()
+        else:
+            self.data_code_table = None
+            self.data_codes = None
+            self.sec_pilot = None
+            self.sec_data = None
         want_fused = (conf.fused_tracker if conf.fused_tracker is not None
                       else self.device.type == "cuda")
         self._use_fused = bool(want_fused) and fused_eligible(conf)
@@ -210,6 +254,10 @@ class Tracker:
 
         self.codes[ch] = self.code_table[code_row]
         self._codes_dev = None         # code tables changed
+        if conf.track_pilot:
+            self.data_codes[ch] = self.data_code_table[code_row]
+            self.sec_pilot[ch] = self.sec_pilot_table[code_row]
+            self.sec_data[ch] = self._sec_data_base
         self.pos_abs[ch] = start
         self.ctl[ch] = ChannelControl(phase=ChannelPhase.WIDE, prn=prn)
         self.ctl[ch].bit_hist = np.zeros(conf.codes_per_bit, dtype=np.int64)
@@ -292,13 +340,19 @@ class Tracker:
                 )
         st = self.state.replace(pos=torch.as_tensor(
             np.maximum(rel, 0).astype(np.int32), device=self.device))
+        # per-channel code/secondary tables live on the device, uploaded
+        # again only when start_channel or a secondary engage rewrites rows
         if self._codes_dev is None:
-            self._codes_dev = torch.tensor(self.codes, device=self.device)
+            tables = [self.codes]
+            if conf.track_pilot:
+                tables += [self.data_codes, self.sec_pilot, self.sec_data]
+            self._codes_dev = tuple(torch.tensor(t, device=self.device)
+                                    for t in tables)
         if self._use_fused:
             new_state, outs = fused_track_block(
-                conf, self._fused_spec, st, window, self._codes_dev)
+                conf, self._fused_spec, st, window, *self._codes_dev)
         else:
-            new_state, outs = track_block(conf, st, window, self._codes_dev)
+            new_state, outs = track_block(conf, st, window, *self._codes_dev)
         self.state = new_state
         host = outputs_to_host(outs, conf.num_taps)
         abs_end = host["pos_end"].astype(np.int64) + abs_base
@@ -364,11 +418,44 @@ class Tracker:
             if first_period < pull_in_periods <= ctl.total_periods:
                 self.state.fll_active[ch] = False
 
-        # Symbol-rate signals (one telemetry symbol per code period) cannot
-        # extend integration across symbols; narrow the loops on a timer
-        # instead of on bit sync
+        # Pilot plans: acquire the secondary code from per-period prompt
+        # signs (reference acquire_secondary, dll_pll_veml_tracking.cc:1120)
+        # once the Costas loop has settled after the FLL hands over
+        sec_start_s = conf.pull_in_time_s + 0.15
         if (
-            ctl.phase == ChannelPhase.WIDE
+            conf.track_pilot
+            and conf.sec_len_pilot > 1
+            and ctl.phase == ChannelPhase.WIDE
+            and not ctl.sec_locked
+            and ctl.total_periods * conf.code_period_s > sec_start_s
+        ):
+            if not ctl.sec_hist:
+                ctl.sec_hist_start = first_period
+            ctl.sec_hist.extend(signs.tolist())
+            sp = conf.sec_len_pilot
+            if len(ctl.sec_hist) >= sp:
+                w = np.asarray(ctl.sec_hist[-sp:], dtype=np.float64)
+                p0 = ctl.sec_hist_start + len(ctl.sec_hist) - sp
+                sec = self.sec_pilot[ch].astype(np.float64)
+                # cyclic correlation of the sign window against the sequence
+                shifts = np.array([
+                    np.dot(w, np.roll(sec, -k)) for k in range(sp)
+                ])
+                k0 = int(np.argmax(np.abs(shifts)))
+                if abs(shifts[k0]) == sp:          # perfect match required
+                    polarity = 1.0 if shifts[k0] > 0 else -1.0
+                    self._engage_secondary(ch, p0, k0, polarity)
+                    events.append("secondary_sync")
+                elif len(ctl.sec_hist) > 4 * sp:
+                    ctl.sec_hist = ctl.sec_hist[-sp:]
+                    ctl.sec_hist_start = p0
+
+        # Symbol-rate signals (one telemetry symbol per code period, e.g.
+        # Galileo E1-B) cannot extend integration across symbols without
+        # the pilot; narrow the loops on a timer instead of on bit sync
+        if (
+            not conf.track_pilot
+            and ctl.phase == ChannelPhase.WIDE
             and conf.extend_correlation_symbols == 1
             and ctl.total_periods * conf.code_period_s
             > conf.pull_in_time_s + 0.5
@@ -383,7 +470,7 @@ class Tracker:
             self.state.fll_active[ch] = False
             events.append("bit_sync")
 
-        if (ctl.phase == ChannelPhase.WIDE
+        if (not conf.track_pilot and ctl.phase == ChannelPhase.WIDE
                 and conf.extend_correlation_symbols > 1
                 and ctl.total_periods * conf.code_period_s
                 > conf.pull_in_time_s + conf.bit_sync_delay_s):
@@ -439,6 +526,47 @@ class Tracker:
                     events.append("loss_of_lock")
         return events
 
+    def _engage_secondary(self, ch: int, p0: int, k0: int,
+                          polarity: float) -> None:
+        """Secondary sequence locked: the prompt of period p0 + i matched
+        secondary chip (i + k0) mod sp with the given polarity. Engage the
+        on-device wipeoff of both components, switch the PLL to
+        four-quadrant atan2 and extend coherent integration (reference
+        post-acquire_secondary state switch). The channel's fields are
+        written by ``_write_channel``; nothing is read back."""
+        conf = self.conf
+        ctl = self.ctl[ch]
+        sp = conf.sec_len_pilot
+        # fold the Costas half-cycle ambiguity into the wipe sequences so
+        # the wiped pilot prompt comes out real-positive (both components
+        # flip together under a pi carrier rotation)
+        self.sec_pilot[ch] = self.sec_pilot[ch] * polarity
+        self.sec_data[ch] = self._sec_data_base * polarity
+        self._codes_dev = None         # secondary tables changed
+        # secondary chip index of the NEXT period (the device applies it at
+        # the start of the next block, which begins at ctl.total_periods)
+        idx_next = (ctl.total_periods - p0 + k0) % sp
+        ctl.phase = ChannelPhase.NARROW
+        ctl.sec_locked = True
+        ctl.sec_hist = []
+        ctl.prompt_hist = []
+        ctl.warmup_until_period = ctl.total_periods + int(
+            max(conf.lock_warmup_s, 8.0 / conf.pll_bw_narrow_hz)
+            / conf.code_period_s
+        )
+        # align integration boundaries with the secondary epoch
+        integ_len = int(conf.extend_correlation_symbols)
+        s = self.state
+        # zero the frequency-rate integrator as in _engage_extended
+        _write_channel(
+            [(s.sec_idx[ch], idx_next), (s.integ_len[ch], integ_len),
+             (s.integ_count[ch], idx_next % integ_len),
+             (s.acc_samples[ch], 0), (s.acc_data_count[ch], 0),
+             (s.sec_active[ch], True),
+             (s.use_atan2[ch], bool(conf.pilot_pll_atan2)),
+             (s.narrow[ch], True), (s.fll_active[ch], False)],
+            zero=[s.pll_state[ch, 1], s.acc_taps[ch], s.acc_data[ch]])
+
     def _engage_extended(self, ch: int) -> None:
         """Switch to narrow-band extended integration aligned to bit edges."""
         conf = self.conf
@@ -458,10 +586,9 @@ class Tracker:
         # keep the PLL's frequency state (i1 = Doppler estimate) but zero the
         # frequency-rate integrator: its wide-band random walk would ride
         # into the narrow loop as a Doppler ramp it cannot unwind
-        s.pll_state[ch, 1] = 0.0
-        s.narrow[ch] = True
-        s.fll_active[ch] = False
-        s.integ_len[ch] = integ_len
-        s.integ_count[ch] = since_edge % integ_len
-        s.acc_taps[ch] = 0.0
-        s.acc_samples[ch] = 0
+        _write_channel(
+            [(s.integ_len[ch], integ_len),
+             (s.integ_count[ch], since_edge % integ_len),
+             (s.acc_samples[ch], 0), (s.narrow[ch], True),
+             (s.fll_active[ch], False)],
+            zero=[s.pll_state[ch, 1], s.acc_taps[ch]])

@@ -1,7 +1,8 @@
 """The pure-NumPy modules the port copies from the JAX package stay
 verbatim copies: each file equals its original after the package import
 rewrite (``gnss_sdr_tpu.`` and ``from gnss_sdr_tpu import`` name the port),
-apart from its one-line header. A change on either side shows up here."""
+apart from its one-line header, and the data files the copies read stay
+byte-equal to the originals. A change on either side shows up here."""
 
 from pathlib import Path
 
@@ -9,10 +10,12 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 COPIES = [
+    "codes/galileo_e1.py",
     "codes/gps_l1_ca.py",
     "codes/resample.py",
     "config/__init__.py",
     "config/configuration.py",
+    "constants/galileo_e1.py",
     "constants/general.py",
     "constants/gps_l1_ca.py",
     "io/__init__.py",
@@ -39,9 +42,13 @@ COPIES = [
     "pvt/ephemeris.py",
     "pvt/solver.py",
     "simulate/constellation.py",
+    "simulate/galileo.py",
     "simulate/scenario.py",
+    "telemetry/fec.py",
+    "telemetry/inav.py",
     "telemetry/lnav.py",
     "telemetry/lnav_encode.py",
+    "telemetry/reed_solomon.py",
     "tracking/conf.py",
     "tracking/lock_detectors.py",
     "utils/log.py",
@@ -58,3 +65,11 @@ def test_copy_is_verbatim(rel):
     assert body == original.replace(
         "gnss_sdr_tpu.", "gnss_sdr_tpu_torch.").replace(
         "from gnss_sdr_tpu import", "from gnss_sdr_tpu_torch import")
+
+
+@pytest.mark.parametrize("rel", ["codes/data/galileo_e1_codes.npz"])
+def test_data_file_is_byte_equal(rel):
+    """``codes/galileo_e1.py`` reads its code tables next to the module, so
+    the port keeps its own copy of the file."""
+    original = (ROOT / "gnss_sdr_tpu" / rel).read_bytes()
+    assert (ROOT / "gnss_sdr_tpu_torch" / rel).read_bytes() == original

@@ -17,16 +17,27 @@ from gnss_sdr_tpu_torch.ops.correlator import pack_code_table
 from gnss_sdr_tpu_torch.tools import mosaic_probe as p1
 
 from torch_cases import (
+    C as PILOT_C,
     CHECK_LANES,
+    DOPS,
+    E1_KW,
+    E1_LEN,
     FS,
+    SD,
+    SP,
     TAPS,
     TAPS5,
     assert_rows_close,
     assert_split_at_chip_edge,
     carry,
+    check_lanes,
     correlator_inputs,
     correlator_rel_err,
+    conf_kw,
     fused_noise_case,
+    pilot_inputs,
+    pilot_signal,
+    pilot_tables,
     run_simple,
     run_tracker,
     simple_carry,
@@ -274,3 +285,122 @@ def test_probe_rejects_cluster_size_cuda(cuda):
         with pytest.raises(ValueError):
             p1.probe("baseline", x, 4, ranks=bad)
     assert p1.probe.launches == before
+
+
+# K1 and K2 in the Galileo E1 modes at the E1 shape (8184-unit codes at
+# 4 Msps, n_max 16002, T = 5), on pilot_inputs' noise window: VEML alone,
+# and with the pilot (secondaries of 25 and 4 chips, counter modulo 100,
+# the secondary engaged, atan2, 4-period integration); K1 at R = 8, 8, 4
+# and 1 (C = 1, 8, 33, 140) and K2 one CTA a channel with the whole period
+# in its ring.
+E1_FUSED_CASES = [(c, pilot) for c in (1, 8, 33, 140)
+                  for pilot in (False, True)]
+E1_FUSED_IDS = [f"C{c}_{'pilot' if p else 'veml'}" for c, p in E1_FUSED_CASES]
+E1_NMAX = 16002
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,pilot", E1_FUSED_CASES, ids=E1_FUSED_IDS)
+def test_e1_fused_kernels_match_plain_cuda(cuda, C, pilot):
+    """K1 and K2 against their plain version over two launches of K = 10:
+    the long-code bounds, 2e-4 relative over the first two periods and
+    2e-3 over all (tests/test_track_kernel_blocked.py), lanes 10 and 17
+    exact."""
+    K = 10
+    kw = dict(track_pilot=True, sec_len_pilot=25, sec_len_data=4,
+              sec_lcm=100) if pilot else {}
+    codes, dcodes, wr, wi, scal, secp, secd = pilot_inputs(
+        C, K, E1_NMAX, TAPS5, pilot, 25, 4, 100, extend=4, seed=3,
+        launches=2)
+    window = (wr.ravel() + 1j * wi.ravel()).astype(np.complex64)
+    tables = (dcodes, secp, secd) if pilot else ()
+    spec = k1.make_blocked_spec(K, E1_NMAX, E1_LEN, TAPS5, **E1_KW, **kw)
+    o_p = run_tracker(k1.track_blocked_plain, spec, window, codes, scal, 2,
+                      cuda, tables)
+    for make, fn, counter in ((k1.make_blocked_spec, k1.track_blocked,
+                               k1.track_blocked),
+                              (k2.make_full_spec, k2.track_full,
+                               k2.track_full)):
+        before = counter.launches
+        o_k = run_tracker(fn, make(K, E1_NMAX, E1_LEN, TAPS5, **E1_KW, **kw),
+                          window, codes, scal, 2, cuda, tables)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 2
+        assert_rows_close(o_p[:, :2], o_k[:, :2], tol=2e-4,
+                          lanes=check_lanes(5))
+        assert_rows_close(o_p, o_k, tol=2e-3, lanes=check_lanes(5))
+
+
+@pytest.mark.cuda
+def test_tracker_past_shared_memory_raises_cuda(cuda):
+    """A CTA that needs more shared memory than the card has (16000-unit
+    pilot and data tables, 128 KB, beside a ring of two 8000-sample slots)
+    is refused with ValueError by K2, and by K1 where its rule gives one
+    CTA a channel (C = 140); no other path runs it."""
+    n_max, L, C = 40000, 16000, 140
+    kw = dict(fs=20e6, code_rate_cps=10.23e6, carrier_freq_hz=1176.45e6,
+              track_pilot=True, sec_len_pilot=10, sec_len_data=10,
+              sec_lcm=10)
+    window = torch.zeros(3 * n_max, dtype=torch.complex64, device=cuda)
+    codes = torch.ones(C, L, device=cuda)
+    tables = (torch.ones(C, L, device=cuda), torch.ones(C, 10, device=cuda),
+              torch.ones(C, 10, device=cuda))
+    pos = torch.zeros(C, dtype=torch.int32, device=cuda)
+    for make, fn in ((k2.make_full_spec, k2.track_full),
+                     (k1.make_blocked_spec, k1.track_blocked)):
+        spec = make(1, n_max, L, TAPS, **kw)
+        scal = torch.zeros(C, spec.num_scalars, device=cuda)
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(window, codes, scal, pos, spec, *tables)
+
+
+@pytest.mark.cuda
+def test_eager_pilot_engine_on_k3_matches_plain_cuda(cuda):
+    """The eager engine with the pilot on the card (K3 with the data
+    prompt, once a period) against the same engine on the CPU (K3's plain
+    version), from one state with the secondary engaged, over two blocks:
+    tests/test_fused_receiver.py's _assert_match tolerances."""
+    from gnss_sdr_tpu_torch.tracking import dll_pll as tdll
+    from gnss_sdr_tpu_torch.tracking.conf import DllPllConf
+    from gnss_sdr_tpu_torch.tracking.tracker import Tracker
+
+    sig = pilot_signal(200_000)
+    tbl, dtbl, sec_p, sec_d = pilot_tables()
+    conf = DllPllConf(**dict(conf_kw(fused_tracker=False), track_pilot=True,
+                             sec_len_pilot=SP, sec_len_data=SD,
+                             extend_correlation_symbols=5,
+                             steps_per_block=20))
+    trk = Tracker(conf, tbl, dtbl, sec_p, sec_d, device="cpu")
+    for ch in range(PILOT_C):
+        trk.start_channel(ch, prn=ch + 1, code_row=ch,
+                          acq_delay_samples=0.0,
+                          acq_doppler_hz=DOPS[ch] + 30.0,
+                          acq_samplestamp=0, current_abs_sample=0)
+    trk.process(sig, 0)
+    for ch in range(PILOT_C):
+        trk._engage_secondary(ch, p0=0, k0=0, polarity=1.0)
+    state = tdll.state_to_numpy(trk.state.replace(pos=torch.as_tensor(
+        trk.pos_abs.astype(np.int32))))
+    tabs = (trk.codes, trk.data_codes, trk.sec_pilot, trk.sec_data)
+    outs = {}
+    for dev in ("cpu", cuda):
+        st = tdll.state_from_numpy(state, dev)
+        t = [torch.as_tensor(a, device=dev) for a in tabs]
+        w = torch.as_tensor(sig, device=dev)
+        before = k3.correlator.launches
+        outs[str(dev)] = []
+        for _ in range(2):
+            st, o = tdll.track_block(conf, st, w, *t)
+            outs[str(dev)].append({k: v.cpu().numpy() for k, v in o.items()})
+        if dev != "cpu":
+            assert k3.correlator.launches == before + 2 * 20
+    for a, b in zip(outs["cpu"], outs[str(cuda)]):
+        for k in ("n_samples", "pos_end", "boundary", "data_boundary",
+                  "data_count"):
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        assert np.abs(a["carrier_doppler"] - b["carrier_doppler"]).max() < 0.1
+        for k in ("prompt", "data_prompt"):
+            pa, pb = a[k], b[k]
+            assert np.median(np.abs(pa - pb) / (np.abs(pa) + 1e-9)) < 5e-3
+        assert np.abs(a["carrier_phase"] - b["carrier_phase"]).max() < 1e-3
+        assert np.abs(a["rem_code_phase"] - b["rem_code_phase"]).max() < 1e-3

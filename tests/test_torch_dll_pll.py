@@ -130,12 +130,15 @@ def test_state_round_trip():
         np.testing.assert_array_equal(v, d[k].astype(v.dtype), err_msg=k)
 
 
-@pytest.mark.parametrize("kw", [{"track_pilot": True}, {"fdma": True},
-                                {"kf": True}],
-                         ids=["pilot", "fdma", "kf"])
-def test_unsupported_modes_raise(kw):
+@pytest.mark.parametrize("kw,item", [
+    ({"track_pilot": True, "fdma": True}, 10), ({"fdma": True}, 10),
+    ({"kf": True}, 12)], ids=["pilot", "fdma", "kf"])
+def test_unsupported_modes_raise(kw, item):
+    """FDMA, with or without the pilot mode, and the Kalman mode raise,
+    naming the ROADMAP queue item that ports them (the pilot mode alone
+    runs: tests/test_torch_galileo_tracking.py)."""
     conf = TConf(**conf_kw(**kw))
     st = tdll.init_state(conf, "cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match=f"queue item {item}"):
         tdll.track_block(conf, st, torch.zeros(100_000, dtype=torch.complex64),
                          torch.ones(C, 1023))

@@ -228,9 +228,12 @@ def test_fir_filter_raises():
 
 
 def test_galileo_group_raises():
-    cfg = _cfg(Channels_1B__count=2)
-    with pytest.raises(NotImplementedError, match="galileo_e1b_plan"):
-        get_signal_plans(cfg, 4e6)
+    """Galileo E5a is not ported yet: its group names the plan and its
+    ROADMAP queue item (E1, group 1B, builds: tests/test_torch_galileo.py)."""
+    cfg = _cfg(Channels_5X__count=2)
+    with pytest.raises(NotImplementedError,
+                       match="galileo_e5a_plan.*queue item 10"):
+        get_signal_plans(cfg, {"L5": 10.23e6})
 
 
 def test_signal_generator_raises():

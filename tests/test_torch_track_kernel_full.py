@@ -93,12 +93,18 @@ def test_track_full_matches_jax_full_kernel(C, K, launches, extend, order,
 
 
 def test_unsupported_modes_raise():
-    with pytest.raises(NotImplementedError):
-        tk.make_full_spec(4, 2666, 1023, TAPS, track_pilot=True, **KW)
-    with pytest.raises(NotImplementedError):
-        tk.make_full_spec(4, 2666, 1023, TAPS, fdma=True, **KW)
-    with pytest.raises(NotImplementedError):
-        tk.make_full_spec(4, 2666, 1023, [-0.5, -0.25, 0, 0.25, 0.5], **KW)
+    """FDMA raises, naming its ROADMAP queue item, with or without the
+    pilot mode; a tap count other than 3 or 5 and a secondary code longer
+    than a 128-chip table row are refused (T = 5 and the pilot mode run:
+    tests/test_torch_galileo_kernels.py)."""
+    for kw in ({"fdma": True}, {"fdma": True, "track_pilot": True}):
+        with pytest.raises(NotImplementedError, match="queue item 10"):
+            tk.make_full_spec(4, 2666, 1023, TAPS, **kw, **KW)
+    with pytest.raises(ValueError, match="3 or 5 taps"):
+        tk.make_full_spec(4, 2666, 1023, [-0.5, -0.25, 0.25, 0.5], **KW)
+    with pytest.raises(ValueError, match="secondary"):
+        tk.make_full_spec(4, 2666, 1023, TAPS, track_pilot=True,
+                          sec_len_pilot=129, sec_lcm=129, **KW)
 
 
 def test_window_overrun_raises():

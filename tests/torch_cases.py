@@ -21,6 +21,15 @@ CHECK_LANES = [0, 1, 2, 3, 10, 11, 12, 13, 14, 17, 20, 21, 22, 23,
 EXACT_LANES = [10, 17]          # period length and position
 
 
+def check_lanes(num_taps: int) -> list[int]:
+    """Lanes compared between two fused trackers with ``num_taps`` taps:
+    every tap, lanes 10-14, 17, 20 and 21, every tap accumulator, and the
+    data and secondary lanes 32-37 (CHECK_LANES, the T = 3 choice, leaves
+    out the late tap and its accumulators)."""
+    return (list(range(2 * num_taps)) + [10, 11, 12, 13, 14, 17, 20, 21]
+            + list(range(22, 22 + 2 * num_taps)) + list(range(32, 38)))
+
+
 def tracker_inputs(C, K, L, nmax, launches, extend, seed):
     """codes [C, L], window re/im [rows, 128] and a scalar block, as
     tests/test_track_kernel_blocked.py builds them."""
@@ -114,7 +123,7 @@ def run_simple(fn, spec, window, codes, scal, launches, device):
     return np.concatenate(outs, axis=1)
 
 
-def carry(prev, o):
+def carry(prev, o, ntaps=3):
     """Next launch's scalar block from the last row (the fused engine's
     fold, as tests/test_track_kernel_blocked.py writes it)."""
     last = o[:, -1, :]
@@ -136,26 +145,68 @@ def carry(prev, o):
     s[:, 21] = last[:, 32] * (1.0 - last[:, 34])
     s[:, 22] = last[:, 33] * (1.0 - last[:, 34])
     s[:, 23] = last[:, 35] * (1.0 - last[:, 34])
-    for ti in range(3):
+    for ti in range(ntaps):
         s[:, S_ACC0 + 2 * ti] = last[:, 22 + 2 * ti] * (1.0 - last[:, 20])
         s[:, S_ACC0 + 2 * ti + 1] = (
             last[:, 22 + 2 * ti + 1] * (1.0 - last[:, 20]))
     return s
 
 
-def run_tracker(fn, spec, window, codes, scal, launches, device):
-    """``launches`` back-to-back calls of a fused tracker; [C, K*launches,
-    128] numpy rows."""
+def run_tracker(fn, spec, window, codes, scal, launches, device,
+                tables=()):
+    """``launches`` back-to-back calls of a fused tracker (with the pilot
+    ``tables`` (dcodes, sec_p, sec_d) in pilot mode); [C, K*launches, 128]
+    numpy rows."""
     w = torch.as_tensor(window, device=device)
     cd = torch.as_tensor(codes, device=device)
+    tabs = [torch.as_tensor(t, device=device) for t in tables]
     outs, s = [], scal
     for _ in range(launches):
         pos = torch.as_tensor(s[:, S_POS].astype(np.int32), device=device)
-        o = fn(w, cd, torch.as_tensor(s, device=device), pos, spec)
+        o = fn(w, cd, torch.as_tensor(s, device=device), pos, spec, *tabs)
         o = o.cpu().numpy()
         outs.append(o)
-        s = carry(s, o)
+        s = carry(s, o, spec.num_taps)
     return np.concatenate(outs, axis=1)
+
+
+# Galileo E1 at 4 Msps: the 8184-unit sinBOC tables at 2.046 Munits/s
+E1_FS = 4.0e6
+E1_KW = dict(fs=E1_FS, code_rate_cps=2.046e6, carrier_freq_hz=1575.42e6)
+E1_LEN = 8184
+
+
+def pilot_inputs(C, K, nmax, taps, pilot, sp, sd, lcm, extend, seed,
+                 launches=1, code_len=E1_LEN):
+    """tests/test_track_kernel_blocked.py's pilot inputs: +-1 pilot and
+    data codes [C, L], a noise window re/im [rows, 128], a scalar block
+    for ``len(taps)`` taps (the secondary index at c mod lcm, the
+    secondary engaged and atan2 on in pilot mode, ``extend``-period
+    integration, FLL) and +-1 secondary rows [C, sp] and [C, sd]."""
+    rng = np.random.default_rng(seed)
+    codes = np.sign(rng.normal(size=(C, code_len))).astype(np.float32)
+    codes[codes == 0] = 1.0
+    dcodes = np.sign(rng.normal(size=(C, code_len))).astype(np.float32)
+    dcodes[dcodes == 0] = 1.0
+    wrows = (nmax * (K * launches + 2)) // 128 + 64
+    wr = rng.normal(size=(wrows, 128)).astype(np.float32)
+    wi = rng.normal(size=(wrows, 128)).astype(np.float32)
+    scal = np.zeros((C, S_ACC0 + 2 * len(taps) + 1), np.float32)
+    scal[:, 0] = np.arange(C) * 37 + 5
+    scal[:, 1] = 0.2
+    scal[:, 3] = 0.5
+    scal[:, 4] = np.linspace(-2500, 2500, C)
+    scal[:, 7] = 1
+    scal[:, 10] = extend
+    scal[:, 13] = np.arange(C) % max(1, lcm)
+    scal[:, 14] = 1 if pilot else 0
+    scal[:, 15] = 1 if pilot else 0
+    scal[:, 16] = 1
+    scal[:, 17] = 25.0
+    scal[:, 18] = 2.0
+    secp = np.sign(rng.normal(size=(C, sp))).astype(np.float32)
+    secd = np.sign(rng.normal(size=(C, sd))).astype(np.float32)
+    return codes, dcodes, wr, wi, scal, secp, secd
 
 
 def assert_rows_close(o1, o2, tol=5e-5, exact=True, lanes=CHECK_LANES):
@@ -248,3 +299,42 @@ def conf_kw(**kw):
     return dict(fs=FS, code_length_chips=1023, code_rate_cps=1.023e6,
                 carrier_freq_hz=1575.42e6, max_channels=C,
                 steps_per_block=30, **kw)
+
+
+# tests/test_fused_receiver.py's pilot case: pilot secondary of 25 chips,
+# data secondary of 4, on GPS-shaped codes
+SP, SD = 25, 4
+
+
+def pilot_tables():
+    """The pilot case's pilot and data codes [C, 1023] and secondaries
+    [C, SP] and [SD]."""
+    from gnss_sdr_tpu_torch.codes.gps_l1_ca import gps_l1_ca_code_table
+
+    rng = np.random.default_rng(7)
+    sec_p = np.where(rng.integers(0, 2, size=(C, SP)) > 0, 1.0,
+                     -1.0).astype(np.float32)
+    sec_d = np.where(rng.integers(0, 2, size=SD) > 0, 1.0,
+                     -1.0).astype(np.float32)
+    tbl = gps_l1_ca_code_table()[:C].astype(np.float32)
+    dtbl = gps_l1_ca_code_table()[C:2 * C].astype(np.float32)
+    return tbl, dtbl, sec_p, sec_d
+
+
+def pilot_signal(n):
+    """The pilot case's composite pilot + data signal, both secondaries
+    from period 0."""
+    tbl, dtbl, sec_p, sec_d = pilot_tables()
+    tt = np.arange(n) / FS
+    sig = np.zeros(n, np.complex64)
+    for c in range(C):
+        cph = (1.023e6 * (1 + DOPS[c] / 1575.42e6)) * tt
+        ci = np.floor(cph).astype(np.int64)
+        per = ci // 1023
+        pil = tbl[c][ci % 1023] * sec_p[c][per % SP]
+        dat = dtbl[c][ci % 1023] * sec_d[per % SD]
+        sig += 0.35 * (pil + dat) * np.exp(
+            2j * np.pi * DOPS[c] * tt + 0.3j * c)
+    rng = np.random.default_rng(1)
+    return (sig + (rng.normal(size=n) + 1j * rng.normal(size=n)) * 0.05
+            ).astype(np.complex64)
