@@ -19,9 +19,16 @@ with and without the pilot), the E1-B receiver of ``tests/test_galileo.py``
 from Python and through the CLI with ``conf/galileo_e1_file.conf``'s keys
 (K1 and K2), the E1-B+C pilot receiver of ``tests/test_galileo_pilot.py``
 with the three engines held to each other on its capture, and ``bench.py``'s
-gal8 settings; each run held to its test's gates, and each kernel it ran
-held to its plain version on a block of the run's own inputs. Every phase
-prints one JSON line; any failure exits nonzero. The last two lines are
+gal8 settings. Then long codes and two bands: K1, K2 and K3 against their
+plain version at the GPS L5 and Galileo E5a shapes (10230-chip tables at
+10.4 Msps, K = 20 and 500), the L1 + L5 receiver and the E5a receiver
+(assisted start, then the three engines) of ``tests/test_dual_band.py``,
+its Doppler-projection check, ``bench.py``'s dual16, and the CLI with
+``conf/dual_band_gps_gal.conf``'s keys (two RF chains) through K1 and K2,
+held to the dual16 run. Each run is held to its test's gates, and each
+kernel it ran to its plain version on a block of the run's own inputs.
+The Galileo and dual-band captures are made in 1 s chunks by worker
+processes. Every phase prints one JSON line; any failure exits nonzero. The last two lines are
 the kernel table and ``{"ok": true, "device": {...}}``. Needs a CUDA
 device and the repository's ``gnss_sdr_tpu_torch`` package; imports no
 JAX.
@@ -31,6 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import inspect
 import io
 import json
 import math
@@ -271,22 +279,26 @@ def fused_engine(value: str | None):
             os.environ["GNSS_SDR_TPU_FUSED"] = old
 
 
-def assert_match(a, b, prompt_tol=5e-3, dop_tol=0.1) -> dict:
-    """tests/test_fused_receiver.py's _assert_match on two BlockResults;
-    returns the measured differences."""
+def assert_match(a, b, prompt_tol=5e-3, dop_tol=0.1,
+                 channels=slice(None)) -> dict:
+    """tests/test_fused_receiver.py's _assert_match on two BlockResults,
+    over ``channels`` (all by default; an idle channel's rows track
+    nothing); returns the measured differences."""
+    oa = {k: v[:, channels] for k, v in a.outputs.items()}
+    ob = {k: v[:, channels] for k, v in b.outputs.items()}
     for k in ("n_samples", "pos_end", "boundary"):
-        if not np.array_equal(a.outputs[k], b.outputs[k]):
+        if not np.array_equal(oa[k], ob[k]):
             raise AssertionError(f"engines disagree on {k}")
-    pa, pb = a.outputs["prompt"], b.outputs["prompt"]
+    pa, pb = oa["prompt"], ob["prompt"]
     diffs = {
-        "doppler_hz": float(np.abs(a.outputs["carrier_doppler"]
-                                   - b.outputs["carrier_doppler"]).max()),
+        "doppler_hz": float(np.abs(oa["carrier_doppler"]
+                                   - ob["carrier_doppler"]).max()),
         "prompt_rel_median": float(np.median(np.abs(pa - pb)
                                              / (np.abs(pa) + 1e-9))),
-        "carrier_phase_rad": float(np.abs(a.outputs["carrier_phase"]
-                                          - b.outputs["carrier_phase"]).max()),
+        "carrier_phase_rad": float(np.abs(oa["carrier_phase"]
+                                          - ob["carrier_phase"]).max()),
         "rem_code_phase_chips": float(np.abs(
-            a.outputs["rem_code_phase"] - b.outputs["rem_code_phase"]).max()),
+            oa["rem_code_phase"] - ob["rem_code_phase"]).max()),
     }
     limits = {"doppler_hz": dop_tol, "prompt_rel_median": prompt_tol,
               "carrier_phase_rad": 1e-3, "rem_code_phase_chips": 1e-3}
@@ -821,31 +833,114 @@ GAL_SCENARIOS = {
     "gal8": dict(fs=4.0e6, tow_start_s=7310.0, duration_s=6.0, cn0_dbhz=46.0,
                  max_sats=8, seed=3),
 }
+# the second band of tests/test_dual_band.py (GPS L1 + L5, seed 4; Galileo
+# E5a alone with injected ephemerides, seed 4) and of bench.py's dual16
+# (GPS L1 with 8 satellites asked, Galileo E5a with 8), each beside the
+# primary scenario whose geometry it shares
+L5_FS = 10.4e6
+DUAL_L1 = dict(fs=FS, tow_start_s=7314.0, duration_s=32.0, cn0_dbhz=46.0,
+               rx_clock_bias_s=1.3e-4, max_sats=5, min_elevation_deg=15.0,
+               seed=4)
+E5A_GAL = dict(fs=FS, tow_start_s=7312.0, duration_s=20.0, cn0_dbhz=47.0,
+               rx_clock_bias_s=0.9e-4, max_sats=5, min_elevation_deg=15.0,
+               seed=4)
+DUAL16_L1 = dict(fs=FS, tow_start_s=7314.0, duration_s=6.0, cn0_dbhz=46.0,
+                 max_sats=8, seed=4)
+DUAL16_GAL = dict(fs=FS, tow_start_s=7310.0, duration_s=6.0, cn0_dbhz=46.0,
+                  max_sats=8, seed=4)
+# capture -> (primary scenario's kind, second band or None)
+CAPTURES = {
+    "dual_l5": ("dual_l1", "l5"), "e5a": ("e5a_gal", "e5a"),
+    "dual16_e5a": ("dual16_gal", "e5a"), "dual_l1": ("dual_l1", None),
+    "dual16_l1": ("dual16_l1", None), "e1b": ("e1b", None),
+    "e1bc": ("e1bc", None), "gal8": ("gal8", None),
+}
 _SCEN_CACHE: dict = {}
 
 
 def gal_scenario(kind: str):
-    """The Galileo scenario ``kind`` (one per process)."""
+    """The primary scenario ``kind`` (one per process): a Galileo
+    scenario of GAL_SCENARIOS, or a GPS or Galileo scenario of the dual-band
+    runs."""
     from gnss_sdr_tpu_torch.simulate.galileo import (
         GalileoScenario,
         GalileoScenarioConfig,
     )
+    from gnss_sdr_tpu_torch.simulate.scenario import GpsScenario, ScenarioConfig
 
     if kind not in _SCEN_CACHE:
-        _SCEN_CACHE[kind] = GalileoScenario(
-            GalileoScenarioConfig(**GAL_SCENARIOS[kind]))
+        gps = {"dual_l1": DUAL_L1, "dual16_l1": DUAL16_L1}
+        gal = dict(GAL_SCENARIOS, e5a_gal=E5A_GAL, dual16_gal=DUAL16_GAL)
+        _SCEN_CACHE[kind] = (
+            GpsScenario(ScenarioConfig(**gps[kind])) if kind in gps
+            else GalileoScenario(GalileoScenarioConfig(**gal[kind])))
     return _SCEN_CACHE[kind]
 
 
-def gal_capture(kind: str) -> np.ndarray:
-    """The whole capture of scenario ``kind``, made in the tests' 1 s
-    chunks (the scenario's noise is seeded by the chunk's start, so these
-    are the tests' samples)."""
-    scen = gal_scenario(kind)
-    fs = int(scen.cfg.fs)
-    total = int(scen.cfg.duration_s * scen.cfg.fs)
-    return np.concatenate([scen.generate(s, min(fs, total - s))
-                           for s in range(0, total, fs)])
+def capture_source(kind: str):
+    """What generates capture ``kind``: its primary scenario, or the second
+    band (GpsL5Band, GalileoE5aBand at 10.4 Msps, 47 dB-Hz, as the tests and
+    bench.py make it) that shares the scenario's geometry."""
+    from gnss_sdr_tpu_torch.simulate.multiband import GalileoE5aBand, GpsL5Band
+
+    primary, band = CAPTURES[kind]
+    if band is None:
+        return gal_scenario(primary)
+    key = ("band", kind)
+    if key not in _SCEN_CACHE:
+        make = GpsL5Band if band == "l5" else GalileoE5aBand
+        _SCEN_CACHE[key] = make(gal_scenario(primary), fs=L5_FS,
+                                cn0_dbhz=47.0)
+    return _SCEN_CACHE[key]
+
+
+def capture_chunks(kind: str) -> list[tuple[str, int, int]]:
+    """Capture ``kind`` as the tests make it: 1 s chunks (start, length) of
+    its source (the noise is seeded by the chunk's start)."""
+    src = capture_source(kind)
+    fs = int(getattr(src, "fs", None) or src.cfg.fs)
+    scen = src.primary if hasattr(src, "primary") else src
+    total = int(scen.cfg.duration_s * fs)
+    return [(kind, s, min(fs, total - s)) for s in range(0, total, fs)]
+
+
+def capture_chunk(task: tuple[str, int, int]) -> np.ndarray:
+    """One chunk of a capture (a worker process's task)."""
+    kind, start, n = task
+    return capture_source(kind).generate(start, n)
+
+
+def make_captures(kinds, check: tuple[str, int]) -> dict:
+    """Every capture of ``kinds``, made in 1 s chunks by a pool of worker
+    processes (one fewer than the host's cores; they import no CUDA). Chunk
+    ``check`` = (kind, index) is also made here, one process, beside the
+    pool, and must equal the worker's."""
+    import multiprocessing
+
+    tasks = [t for k in kinds for t in capture_chunks(k)]
+    # the second band's chunks (10.4 Msps) first: they take the longest
+    tasks.sort(key=lambda t: CAPTURES[t[0]][1] is None)
+    workers = max(1, min(len(tasks), (os.cpu_count() or 2) - 1))
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        pending = pool.map_async(capture_chunk, tasks, chunksize=1)
+        kind, idx = check
+        t1 = time.perf_counter()
+        serial = capture_chunk(capture_chunks(kind)[idx])
+        serial_s = time.perf_counter() - t1
+        chunks = pending.get(timeout=900)
+    got = dict(zip(tasks, chunks))
+    same = bool(np.array_equal(got[capture_chunks(kind)[idx]], serial))
+    caps = {k: np.concatenate([got[t] for t in capture_chunks(k)])
+            for k in kinds}
+    emit("captures", workers=workers, chunks=len(tasks),
+         seconds=time.perf_counter() - t0, check_chunk=list(check),
+         check_chunk_seconds=serial_s, worker_chunk_equals_serial=same,
+         samples={k: len(v) for k, v in caps.items()})
+    if not same:
+        raise AssertionError(f"capture chunk {check}: the worker's differs "
+                             "from the one made in this process")
+    return caps
 
 
 @contextlib.contextmanager
@@ -854,8 +949,9 @@ def record_blocks(every: int = 64):
     make (tracking/fused.py's ``track_blocked`` and ``track_full``,
     tracking/dll_pll.py's ``correlator``): of calls 0, 1, 2, 4, 8, ... and
     of every ``every``-th, the latest per kernel, as ``{kernel: (args,
-    kwargs, call index)}``. A kernel can then be held to its plain version
-    on a block of the run itself."""
+    kwargs, call index)}``, and the latest per kernel and code length (a
+    dual-band run's bands), as ``{(kernel, length): ...}``. A kernel can
+    then be held to its plain version on a block of the run itself."""
     from gnss_sdr_tpu_torch.tracking import dll_pll, fused
 
     kept, saved = {}, []
@@ -870,6 +966,9 @@ def record_blocks(every: int = 64):
             if i & (i - 1) == 0 or i % every == 0:
                 kept[attr] = (tuple(a.clone() if isinstance(a, torch.Tensor)
                                     else a for a in args), dict(kw), i)
+                length = kw["code_len"] if "code_len" in kw else (
+                    args[4].code_len)
+                kept[(attr, length)] = kept[attr]
             return fn(*args, **kw)
 
         saved.append((mod, attr, fn))
@@ -941,11 +1040,13 @@ def hold_fused_block(run: str, kname: str, rec, kernels=None,
     return res
 
 
-def hold_correlator_block(run: str, rec, kernels, entry: str) -> dict:
+def hold_correlator_block(run: str, rec, kernels=None,
+                          entry: str | None = None) -> dict:
     """K3 against its plain version on a recorded period ``rec`` of the
     eager engine in run ``run``: taps within 2e-3 relative (to
     max(|tap|, 1)), the lanes past them zero, as phase 3 holds it; timed,
-    with its bound from the period's own sample counts."""
+    with its bound from the period's own sample counts. Goes into
+    ``kernels[entry]`` where given."""
     from gnss_sdr_tpu_torch.ops import correlator as k3
     from gnss_sdr_tpu_torch.ops.slots import LANES
 
@@ -974,7 +1075,8 @@ def hold_correlator_block(run: str, rec, kernels, entry: str) -> dict:
         len(taps), kw["track_pilot"]))
     res = dict(max_abs_err=float(np.abs(g - r).max()), ms=ms,
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-    kernels[entry] = dict(res)
+    if entry is not None:
+        kernels[entry] = dict(res)
     emit("block_vs_plain", run=run, kernel="correlator", call=call, C=C,
          N=x.shape[1], n_valid=n_valid, L=kw["code_len"], T=len(taps),
          data_prompt=kw["track_pilot"], rel_err=rel, tol=2e-3,
@@ -1340,15 +1442,11 @@ def galileo_pilot_phase(capture, scen, kernels) -> dict:
     tests/test_fused_receiver.py's _assert_match; K2 and K3 against their
     plain versions on a block and a period of those runs
     (``track_full_e1bc``, ``correlator_e1bc``)."""
-    import copy
-
     from gnss_sdr_tpu_torch.ops import correlator as k3
-    from gnss_sdr_tpu_torch.ops import track_kernel as k2
     from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
     from gnss_sdr_tpu_torch.receiver.plans import galileo_e1bc_plan
     from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
-    from gnss_sdr_tpu_torch.tracking.dll_pll import TrackingState
-    from gnss_sdr_tpu_torch.tracking.tracker import ChannelPhase, Tracker
+    from gnss_sdr_tpu_torch.tracking.tracker import ChannelPhase
 
     fs = scen.cfg.fs
     plan = galileo_e1bc_plan(fs=fs, num_channels=6)
@@ -1384,7 +1482,40 @@ def galileo_pilot_phase(capture, scen, kernels) -> dict:
 
     # ---- the three engines on the same capture -------------------------
     acq = {prn: v for (_, prn), v in rx.status.acquired.items()}
-    x = torch.as_tensor(capture[:int(1.6 * fs)], device="cuda")
+    starts = [dict(ch=ch, prn=prn, code_row=plan.prn_row(prn),
+                   acq_delay_samples=delay, acq_doppler_hz=dop,
+                   acq_samplestamp=0, current_abs_sample=0)
+              for ch, (prn, (dop, delay)) in enumerate(sorted(acq.items()))]
+    counts = three_engines("e1bc_three_engines", plan,
+                           capture[:int(1.6 * fs)], starts, 20, kernels,
+                           "e1bc")
+    kernels["track_blocked_e1bc"]["launches"] = n1
+    kernels["track_full_e1bc"]["launches"] = counts["track_full"][2]
+    kernels["correlator_e1bc"]["launches"] = counts["eager"][0]
+    return e
+
+
+def three_engines(run: str, plan, capture: np.ndarray, starts: list,
+                  max_settle: int, kernels, suffix: str) -> dict:
+    """The three engines on one capture of a pilot plan: a K1 tracker
+    started by ``starts`` (start_channel's arguments, as a run made them)
+    runs until its channels lock the secondary (at most ``max_settle``
+    blocks), its state goes to an eager (K3) and a K2 tracker, and all
+    three run 3 blocks, held to each other by
+    tests/test_fused_receiver.py's _assert_match on the started channels,
+    data-symbol boundaries and counts equal; K2 and K3 against their plain versions on a block
+    and a period of those runs (``track_full_<suffix>``,
+    ``correlator_<suffix>`` in ``kernels``). Returns the launches of each
+    engine (K3, K1, K2)."""
+    import copy
+
+    from gnss_sdr_tpu_torch.ops import correlator as k3
+    from gnss_sdr_tpu_torch.ops import track_kernel as k2
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.tracking.dll_pll import TrackingState
+    from gnss_sdr_tpu_torch.tracking.tracker import ChannelPhase, Tracker
+
+    x = torch.as_tensor(capture, device="cuda")
     conf = plan.trk_conf
     trks = {}
     for engine, fused, env in (("track_blocked", True, "blocked"),
@@ -1396,18 +1527,17 @@ def galileo_pilot_phase(capture, scen, kernels) -> dict:
                 plan.code_table, plan.data_code_table, plan.sec_pilot_table,
                 plan.sec_data_levels, device=x.device)
     lead = trks["track_blocked"]
-    for ch, (prn, (dop, delay)) in enumerate(sorted(acq.items())):
-        lead.start_channel(ch, prn=prn, code_row=plan.prn_row(prn),
-                           acq_delay_samples=delay, acq_doppler_hz=dop,
-                           acq_samplestamp=0, current_abs_sample=0)
-    started = list(range(len(acq)))
+    for kw in starts:
+        lead.start_channel(**kw)
+    started = [kw["ch"] for kw in starts]
     settle = 0
     while not all(lead.ctl[c].sec_locked for c in started
                   if lead.ctl[c].phase != ChannelPhase.LOST):
         lead.process_device(x, 0, x.shape[0])
         settle += 1
-        if settle > 20:
-            raise AssertionError("no secondary lock within 20 blocks")
+        if settle > max_settle:
+            raise AssertionError(f"{run}: no secondary lock within "
+                                 f"{max_settle} blocks")
     for engine in ("eager", "track_full"):
         t = trks[engine]
         t.state = TrackingState(**{
@@ -1433,26 +1563,24 @@ def galileo_pilot_phase(capture, scen, kernels) -> dict:
     want = {"eager": (3 * conf.steps_per_block, 0, 0),
             "track_blocked": (0, 3, 0), "track_full": (0, 0, 3)}
     if counts != want:
-        raise AssertionError(f"E1-B+C engine launches {counts}, want {want}")
-    diffs = {f"{a}_vs_{b}": [assert_match(p, q) for p, q in
-                             zip(results[a], results[b])]
+        raise AssertionError(f"{run}: engine launches {counts}, want {want}")
+    diffs = {f"{a}_vs_{b}": [assert_match(p, q, channels=started)
+                             for p, q in zip(results[a], results[b])]
              for a, b in (("eager", "track_blocked"), ("eager", "track_full"),
                           ("track_blocked", "track_full"))}
     for a, b in (("eager", "track_blocked"), ("track_blocked", "track_full")):
         for p, q in zip(results[a], results[b]):
             for k in ("data_boundary", "data_count"):
-                if not np.array_equal(p.outputs[k], q.outputs[k]):
-                    raise AssertionError(f"E1-B+C {a} and {b} disagree on {k}")
-    emit("e1bc_three_engines", settle_blocks=settle, blocks=3,
-         channels=len(started), launches=counts, diffs=diffs)
-    hold_fused_block("e1bc_three_engines", "track_full", rec["track_full"],
-                     kernels, "track_full_e1bc")
-    hold_correlator_block("e1bc_three_engines", rec["correlator"], kernels,
-                          "correlator_e1bc")
-    kernels["track_blocked_e1bc"]["launches"] = n1
-    kernels["track_full_e1bc"]["launches"] = counts["track_full"][2]
-    kernels["correlator_e1bc"]["launches"] = counts["eager"][0]
-    return e
+                if not np.array_equal(p.outputs[k][:, started],
+                                      q.outputs[k][:, started]):
+                    raise AssertionError(f"{run}: {a} and {b} disagree on {k}")
+    emit(run, settle_blocks=settle, blocks=3, channels=len(started),
+         launches=counts, diffs=diffs)
+    hold_fused_block(run, "track_full", rec["track_full"], kernels,
+                     f"track_full_{suffix}")
+    hold_correlator_block(run, rec["correlator"], kernels,
+                          f"correlator_{suffix}")
+    return counts
 
 
 def gal8_phase(capture, scen, kernels) -> dict:
@@ -1483,6 +1611,534 @@ def gal8_phase(capture, scen, kernels) -> dict:
                      reps=5)
     kernels["track_blocked_gal8"]["launches"] = n1
     return e
+
+
+# ---- long codes and two bands: GPS L5 and Galileo E5a ---------------------
+
+L5_LEN = 10230                  # chips of the L5 and E5a primary codes
+LONG_DOPS = [1200.0, -2500.0, 3400.0, -400.0, 150.0, -3900.0, 2600.0,
+             -1700.0]
+
+
+def long_code_signal(plan, n, dops, delays, seed):
+    """Channels c of a GPS L5 or Galileo E5a ``plan`` (its table rows c) at
+    L5_FS: the pilot code times its secondary on the quadrature axis, the
+    data code times the data secondary and a random symbol a secondary
+    period on the in-phase axis (secondary chip 0 on the period that starts
+    at the channel's delay, in samples), at the given Dopplers, with
+    noise."""
+    rng = np.random.default_rng(seed)
+    tt = np.arange(n) / L5_FS
+    sig = np.zeros(n, np.complex64)
+    sd = plan.sec_data_levels
+    for c, (dop, dly) in enumerate(zip(dops, delays)):
+        u = np.floor((10.23e6 * (1 + dop / 1176.45e6)) * (tt - dly / L5_FS)
+                     ).astype(np.int64)
+        per = np.floor_divide(u, L5_LEN)
+        idx = u - per * L5_LEN
+        sym_i = np.floor_divide(per, len(sd))
+        sym = np.where(rng.random(int(sym_i.max() - sym_i.min()) + 1) < 0.5,
+                       1.0, -1.0)[sym_i - sym_i.min()]
+        sp = plan.sec_pilot_table[c]
+        comp = (plan.data_code_table[c][idx] * sd[per % len(sd)] * sym
+                + 1j * plan.code_table[c][idx] * sp[per % len(sp)])
+        sig += (0.35 * comp * np.exp(2j * np.pi * dop * tt + 0.3j * c)
+                ).astype(np.complex64)
+    noise = rng.normal(size=(n, 2)).astype(np.float32) * 0.05
+    return (sig + noise[:, 0] + 1j * noise[:, 1]).astype(np.complex64)
+
+
+def start_long_code(plan, K: int, delays, dev, fused: bool = True):
+    """A tracker of ``plan`` with K periods a block, channel c started at
+    its delay 3 Hz off LONG_DOPS[c], the secondary engaged at its true
+    phase, atan2 and 20-period integration."""
+    from gnss_sdr_tpu_torch.tracking.tracker import Tracker
+
+    conf = dataclasses.replace(plan.trk_conf, steps_per_block=K,
+                               fused_tracker=fused)
+    trk = Tracker(conf, plan.code_table, plan.data_code_table,
+                  plan.sec_pilot_table, plan.sec_data_levels, device=dev)
+    C = len(delays)
+    for ch in range(C):
+        trk.start_channel(ch, prn=ch + 1, code_row=ch,
+                          acq_delay_samples=delays[ch],
+                          acq_doppler_hz=LONG_DOPS[ch] + 3.0,
+                          acq_samplestamp=0, current_abs_sample=0)
+    on = torch.ones(C, dtype=torch.bool, device=dev)
+    trk.state = trk.state.replace(
+        sec_active=on, use_atan2=on, narrow=on, fll_active=~on,
+        integ_len=torch.full((C,), 20, dtype=torch.int32, device=dev))
+    return trk
+
+
+def long_code_kernel_phase(dev) -> None:
+    """Phase 16: K1, K2 and K3 against their plain version at the GPS L5
+    and Galileo E5a shapes: 10.4 Msps, 10230-chip tables, C = 8, T = 3
+    with the pilot (NH20/NH10 counted modulo 20, CS100/CS20 modulo 100),
+    20-period integration, on a signal of each plan's own codes
+    (start_long_code's channels). K1 and K2 on one block of K = 20 and of
+    K = 500 (bench.py's dual16 E5a block), K3 on one period of the eager
+    engine from the same start; long-code tolerances (2e-4 over the first
+    two periods, 2e-3 over K, check_lanes(3); K3 2e-3), each timed. (The
+    kernels line takes its L5 and E5a numbers from blocks of the runs,
+    phases 17-21.)"""
+    from gnss_sdr_tpu_torch.receiver.plans import (
+        galileo_e5a_plan,
+        gps_l5_plan,
+    )
+    from gnss_sdr_tpu_torch.tracking.fused import (
+        _pack_scalars,
+        build_fused_engine,
+    )
+
+    C = 8
+    delays = [37.0 + 1301.0 * c for c in range(C)]
+    for name, make in (("l5", gps_l5_plan), ("e5a", galileo_e5a_plan)):
+        plan = make(L5_FS, num_channels=C)
+        t0 = time.perf_counter()
+        sig = long_code_signal(plan, int(L5_FS * 0.53), LONG_DOPS, delays,
+                               seed=5)
+        emit("long_code_signal", signal=name,
+             seconds=time.perf_counter() - t0, samples=len(sig))
+        window = torch.as_tensor(sig, device=dev)
+        for K in (20, 500):
+            trk = start_long_code(plan, K, delays, dev)
+            st = trk.state.replace(pos=torch.as_tensor(
+                trk.pos_abs.astype(np.int32), device=dev))
+            tabs = tuple(torch.as_tensor(t, device=dev) for t in (
+                trk.data_codes, trk.sec_pilot, trk.sec_data))
+            rec = ((window, torch.as_tensor(trk.codes, device=dev),
+                    _pack_scalars(trk.conf, st), st.pos,
+                    build_fused_engine(trk.conf), *tabs), {}, 0)
+            for kname in ("track_blocked", "track_full"):
+                hold_fused_block(f"long_code_{name}_K{K}", kname, rec,
+                                 reps=20 if K == 20 else 3)
+        trk = start_long_code(plan, 20, delays, dev, fused=False)
+        with record_blocks() as rec:
+            trk.process_device(window, 0, window.shape[0])
+        hold_correlator_block(f"long_code_{name}_eager", rec["correlator"])
+
+
+def count_blocks(rx) -> list[list[int]]:
+    """Per group of ``rx``, a counter of the blocks its tracker runs."""
+    counts = []
+    for g in rx.groups:
+        n, process = [0], g.tracker.process_device
+
+        def counted(*a, _process=process, _n=n):
+            r = _process(*a)
+            _n[0] += 1
+            return r
+
+        g.tracker.process_device = counted
+        counts.append(n)
+    return counts
+
+
+def enu_errors(fixes, scen) -> np.ndarray:
+    """[N, 3] east/north/up errors of ``fixes`` against the scenario."""
+    from gnss_sdr_tpu_torch.pvt.coords import ecef_to_enu
+
+    lat, lon = np.deg2rad(scen.cfg.rx_lat_deg), np.deg2rad(scen.cfg.rx_lon_deg)
+    return np.array([ecef_to_enu(f.pos_ecef - scen.rx_ecef, lat, lon)
+                     for f in fixes]).reshape(-1, 3)
+
+
+def sec_locked(g) -> list[int]:
+    """The channels of group ``g`` whose secondary code is locked."""
+    return [ch for ch in range(g.plan.num_channels)
+            if g.tracker.ctl[ch].sec_locked]
+
+
+def dual_band_gates(rx, scen) -> dict:
+    """tests/test_dual_band.py's gates on the L1 + L5 run; raises if one
+    fails: >= 3 L5 channels secondary-locked, each with atan2 and
+    integ_len 20; CNAV decoded on >= 3 channels and >= 3 L5 channels
+    anchored; >= 5 fixes, the last one using >= 2 L5 observations; mean
+    2D < 2 m and 3D < 5 m over fixes[3:]."""
+    g5 = next(g for g in rx.groups if g.plan.name == "L5")
+    locked = sec_locked(g5)
+    atan2 = g5.tracker.state.use_atan2.cpu().numpy()
+    integ = g5.tracker.state.integ_len.cpu().numpy()
+    cnav = [p for p, d in g5.decoders.items() if d.msgs_ok > 0]
+    anchored = sum(st.anchored for st in
+                   rx.obs.ch[g5.offset:g5.offset + g5.plan.num_channels])
+    fixes = rx.status.fixes
+    l5_used = [k for k in fixes[-1].used if k[2] == "L5"] if fixes else []
+    enu = enu_errors(fixes[3:], scen)
+    e = dict(acquired=len(rx.status.acquired), l5_prns=g5.channel_prn,
+             l5_locked=len(locked),
+             l5_atan2=[bool(atan2[c]) for c in locked],
+             l5_integ_len=[int(integ[c]) for c in locked],
+             cnav_decoded=len(cnav), l5_anchored=int(anchored),
+             fixes=len(fixes), last_fix_l5_obs=len(l5_used),
+             mean_2d_m=float(np.hypot(enu[:, 0], enu[:, 1]).mean())
+             if len(enu) else math.inf,
+             mean_3d_m=float(np.linalg.norm(enu, axis=1).mean())
+             if len(enu) else math.inf, ttff_s=rx.status.ttff_s)
+    if not (len(locked) >= 3 and all(e["l5_atan2"])
+            and all(v == 20 for v in e["l5_integ_len"])
+            and len(cnav) >= 3 and anchored >= 3 and len(fixes) >= 5
+            and len(l5_used) >= 2 and e["mean_2d_m"] < 2.0
+            and e["mean_3d_m"] < 5.0):
+        raise AssertionError(f"L1 + L5 gates failed: {e}")
+    return e
+
+
+def dual_band_phase(caps, kernels) -> dict:
+    """Phase 17: tests/test_dual_band.py's dual_band_rx from Python: GPS
+    L1 C/A (5 channels, 2.6 Msps) and L5 (4 channels on the first four
+    PRNs, 10.4 Msps), 32 s, seed 4, 1 s feeds of each band, through K1;
+    L5 searched around each L1 Doppler by the assisted engine; held to the
+    test's gates. Then K1 against its plain version on an L5 block of the
+    run (``track_blocked_l5``)."""
+    from gnss_sdr_tpu_torch.ops import correlator as k3
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.receiver.plans import gps_l1ca_plan, gps_l5_plan
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+
+    scen = gal_scenario("dual_l1")
+    prns = tuple(scen.prns)
+    rx = Receiver(ReceiverConfig(fs=FS, num_channels=5), plans=[
+        gps_l1ca_plan(fs=FS, num_channels=5, search_prns=prns),
+        gps_l5_plan(fs=L5_FS, num_channels=4, search_prns=prns[:4])])
+    blocks = count_blocks(rx)
+    x1, x5 = caps["dual_l1"], caps["dual_l5"]
+    c1, c5 = int(FS), int(L5_FS)
+    k1.track_blocked.launches = 0
+    k3.correlator.launches = 0
+    acquired = False
+    with record_blocks() as rec:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(int(scen.cfg.duration_s)):
+            rx.feed(x1[i * c1:(i + 1) * c1], band="L1")
+            rx.feed(x5[i * c5:(i + 1) * c5], band="L5")
+            if not acquired:
+                rx.acquire()
+                acquired = (
+                    len([k for k in rx.status.acquired if k[0] == "G"]) >= 4
+                    and len(rx.groups[1].active_channels()) >= 3)
+            rx.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    n1, n3 = k1.track_blocked.launches, k3.correlator.launches
+    nb = [b[0] for b in blocks]
+    if not (nb[1] > 0 and n1 == sum(nb) and n3 == 0):
+        raise AssertionError(f"L1 + L5: {n1} K1 and {n3} K3 launches for "
+                             f"{nb} blocks")
+    e = dict(dual_band_gates(rx, scen), blocks_l1=nb[0], blocks_l5=nb[1],
+             k1_launches=n1,
+             l5_assisted=rx.groups[1].assisted_acq is not None,
+             wall_s=wall, realtime_factor=scen.cfg.duration_s / wall)
+    emit("e2e_dual_band_l1_l5_32s", **e)
+    hold_fused_block("e2e_dual_band_l1_l5_32s", "track_blocked",
+                     rec[("track_blocked", L5_LEN)], kernels,
+                     "track_blocked_l5")
+    kernels["track_blocked_l5"]["launches"] = nb[1]
+    return e
+
+
+def e5a_gates(rx, gal) -> dict:
+    """tests/test_dual_band.py's gates on the E5a run; raises if one fails:
+    >= 4 channels CS100-locked, >= 3 F/NAV pages decoded, >= 3 fixes with
+    mean 3D < 5 m over fixes[2:]."""
+    g = rx.groups[0]
+    locked = sec_locked(g)
+    fixes = rx.status.fixes
+    err_3d = np.linalg.norm(enu_errors(fixes[2:], gal), axis=1)
+    e = dict(acquired=len(rx.status.acquired), locked=len(locked),
+             fnav_pages_ok=sum(d.pages_ok for d in g.decoders.values()),
+             fnav_pages_bad=sum(d.pages_bad for d in g.decoders.values()),
+             fixes=len(fixes),
+             mean_3d_m=float(err_3d.mean()) if len(err_3d) else math.inf,
+             ttff_s=rx.status.ttff_s)
+    if not (len(locked) >= 4 and e["fnav_pages_ok"] >= 3 and len(fixes) >= 3
+            and e["mean_3d_m"] < 5.0):
+        raise AssertionError(f"E5a gates failed: {e}")
+    return e
+
+
+def e5a_phase(caps, kernels) -> dict:
+    """Phase 18: tests/test_dual_band.py's e5a_rx from Python:
+    galileo_e5a_plan alone at 10.4 Msps (5 channels, 20 s, seed 4) with
+    the ephemerides injected, through K1, held to the test's gates (>= 4
+    channels CS100-locked, >= 3 F/NAV pages, >= 3 fixes with mean 3D
+    < 5 m over fixes[2:]); K1 against its plain version on a block of the
+    run (``track_blocked_e5a``). Then the three engines on the capture
+    (three_engines: K3, K1, K2; ``track_full_e5a``, ``correlator_e5a``),
+    started as the run started its channels."""
+    from gnss_sdr_tpu_torch.ops import correlator as k3
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.receiver.plans import galileo_e5a_plan
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+
+    gal = gal_scenario("e5a_gal")
+    plan = galileo_e5a_plan(fs=L5_FS, num_channels=5,
+                            search_prns=tuple(gal.prns))
+    rx = Receiver(ReceiverConfig(fs=L5_FS, num_channels=5), plans=[plan])
+    for p in gal.prns:
+        rx.ephemerides[("E", p)] = gal.ephs[p]
+    trk = rx.groups[0].tracker
+    starts, start = [], trk.start_channel
+
+    def recorded(*a, **kw):
+        starts.append(dict(inspect.signature(start).bind(*a, **kw).arguments))
+        return start(*a, **kw)
+
+    trk.start_channel = recorded
+    (blocks,) = count_blocks(rx)
+    x, c = caps["e5a"], int(L5_FS)
+    k1.track_blocked.launches = 0
+    k3.correlator.launches = 0
+    acquired = False
+    with record_blocks() as rec:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(int(gal.cfg.duration_s)):
+            rx.feed(x[i * c:(i + 1) * c], band="L5")
+            if not acquired:
+                acquired = len(rx.acquire()) >= 4
+            rx.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    n1, n3 = k1.track_blocked.launches, k3.correlator.launches
+    if not (blocks[0] > 0 and n1 == blocks[0] and n3 == 0):
+        raise AssertionError(f"E5a: {n1} K1 and {n3} K3 launches for "
+                             f"{blocks[0]} blocks")
+    e = dict(e5a_gates(rx, gal), blocks=blocks[0], k1_launches=n1,
+             wall_s=wall, realtime_factor=gal.cfg.duration_s / wall)
+    emit("e2e_galileo_e5a_20s", **e)
+    hold_fused_block("e2e_galileo_e5a_20s", "track_blocked",
+                     rec["track_blocked"], kernels, "track_blocked_e5a")
+    kernels["track_blocked_e5a"]["launches"] = n1
+    counts = three_engines("e5a_three_engines", plan, x[:int(4 * L5_FS)],
+                           starts, 150, kernels, "e5a")
+    kernels["track_full_e5a"]["launches"] = counts["track_full"][2]
+    kernels["correlator_e5a"]["launches"] = counts["eager"][0]
+    return e
+
+
+def project_doppler_phase() -> dict:
+    """Phase 19: tests/test_dual_band.py's
+    test_project_doppler_assists_secondary_band on the card: a satellite
+    tracked on L1 at +1000 Hz seeds the L5 group's search with 1000 Hz x
+    f_L5 / f_L1; the assisted grid has fewer than 12 bins, its offsets lie
+    on the card, and the engine is cached with its offsets refreshed."""
+    from gnss_sdr_tpu_torch.receiver.plans import gps_l1ca_plan, gps_l5_plan
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+    from gnss_sdr_tpu_torch.tracking import ChannelPhase
+
+    rx = Receiver(ReceiverConfig(fs=2.6e6), plans=[
+        gps_l1ca_plan(fs=2.6e6, num_channels=2, search_prns=(7, 8)),
+        gps_l5_plan(fs=12.0e6, num_channels=2, search_prns=(7, 8))])
+    g1, g5 = rx.groups
+    g1.channel_prn[0] = 7
+    g1.tracker.ctl[0].phase = ChannelPhase.WIDE
+    g1.tracker.state.carrier_doppler[0] = 1000.0
+    proj = rx._project_doppler(g5)
+    want = 1000.0 * g5.plan.carrier_freq_hz / g1.plan.carrier_freq_hz
+    eng = rx._assisted_engine(g5, proj)
+    bins = len(eng.inner.conf.doppler_grid_hz())
+    row7, row8 = g5.plan.prn_row(7), g5.plan.prn_row(8)
+    ok = (set(proj) == {7} and abs(proj[7] - want) <= 1e-6 * want
+          and bins < 12 and eng.inner._offsets.device.type == "cuda"
+          and abs(eng._offsets_np[row7] - proj[7]) <= 1e-6 * want
+          and eng._offsets_np[row8] == 0.0)
+    table = eng.inner._offsets
+    again = rx._assisted_engine(g5, {7: 500.0})
+    ok = ok and (again is eng and eng.inner._offsets is table
+                 and float(table[row7]) == 500.0
+                 and rx._project_doppler(g1) == {})
+    e = dict(projected_hz=proj.get(7), want_hz=want, assisted_bins=bins,
+             offsets_device=str(table.device), cached=again is eng)
+    if not ok:
+        raise AssertionError(f"Doppler projection failed: {e}")
+    emit("project_doppler_assists_secondary_band", **e)
+    return e
+
+
+def dual16_phase(caps, kernels) -> dict:
+    """Phase 20: bench.py's dual16 (GPS L1 C/A, 8 channels, 1000 periods
+    a block; Galileo E5a, 8 channels, 500 periods a block; int8_stream) on
+    its 6 s captures, driven as bench.py's _run_e2e drives it (1 s feeds
+    of each band, one acquisition, the factor over the 4 s after a 2 s
+    warm-up); K1 against its plain version on an E5a block of the run
+    (``track_blocked_dual16``). Returns its acquisitions per system (one
+    acquisition, on the captures' first samples)."""
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.receiver.plans import (
+        galileo_e5a_plan,
+        gps_l1ca_plan,
+    )
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+
+    rx = Receiver(ReceiverConfig(fs=FS, num_channels=8, int8_stream=True),
+                  plans=[gps_l1ca_plan(fs=FS, num_channels=8,
+                                       steps_per_block=1000),
+                         galileo_e5a_plan(fs=L5_FS, num_channels=8,
+                                          steps_per_block=500)])
+    blocks = count_blocks(rx)
+    feeds = {"L1": (caps["dual16_l1"], int(FS)),
+             "L5": (caps["dual16_e5a"], int(L5_FS))}
+    dur, warm = 6, 2
+    k1.track_blocked.launches = 0
+    with record_blocks() as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(dur):
+            if i == warm:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+            for band, (x, c) in feeds.items():
+                rx.feed(x[i * c:(i + 1) * c], band=band)
+            if i == 0:
+                first = rx.acquire()
+            rx.run()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    nb = [b[0] for b in blocks]
+    n1 = k1.track_blocked.launches
+    if not (nb[1] > 0 and n1 == sum(nb)):
+        raise AssertionError(f"dual16: {n1} K1 launches for {nb} blocks")
+    acq = by_system(first)
+    e = dict(steps_per_block=[1000, 500], int8_stream=True,
+             blocks_l1=nb[0], blocks_e5a=nb[1], k1_launches=n1,
+             acquired={s: sorted(v) for s, v in acq.items()},
+             active=[len(g.active_channels()) for g in rx.groups],
+             e5a_locked=len(sec_locked(rx.groups[1])),
+             wall_s=t2 - t0, realtime_factor=dur / (t2 - t0),
+             bench_realtime_factor=(dur - warm) / (t2 - t1))
+    emit("e2e_dual16_6s_bench_settings", **e)
+    hold_fused_block("e2e_dual16_6s_bench_settings", "track_blocked",
+                     rec[("track_blocked", L5_LEN)], kernels,
+                     "track_blocked_dual16", reps=3)
+    kernels["track_blocked_dual16"]["launches"] = nb[1]
+    return acq
+
+
+def by_system(started: dict) -> dict:
+    """{system: {PRN: Doppler}} of an acquisition's {(system, PRN):
+    (Doppler, delay)} (GPS on L1, Galileo on E5a in the dual16 runs)."""
+    return {sysid: {prn: dop for (s, prn), (dop, _) in started.items()
+                    if s == sysid} for sysid in ("G", "E")}
+
+
+def dual_cli_phase(caps, ref_acq, tmp: Path, kernels) -> dict:
+    """Phase 21: the .conf/CLI entry point with
+    conf/dual_band_gps_gal.conf's keys (two RF chains: GPS L1 C/A at
+    2.6 Msps and Galileo E5a at 10.4 Msps, ibyte) on ibyte copies of phase
+    20's captures (the two file names rewritten), through K1 and through
+    K2; each run held to phase 20's: its first acquisition (on the same
+    first samples; the CLI searches again every 2 s while a channel is
+    idle, phase 20 once) starts the same PRNs per system with Doppler
+    within one bin, and >= 4 E5a channels are secondary-locked.
+    Then each kernel against its plain version on an E5a block of its run
+    (K2's as ``track_full_dual16``)."""
+    from gnss_sdr_tpu_torch import main as cli
+    from gnss_sdr_tpu_torch.config.configuration import FileConfiguration
+    from gnss_sdr_tpu_torch.io import encode_samples
+    from gnss_sdr_tpu_torch.ops import track_kernel as k2
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver
+    from gnss_sdr_tpu_torch.tracking.tracker import Tracker
+
+    t0 = time.perf_counter()
+    text = (ROOT / "conf" / "dual_band_gps_gal.conf").read_text()
+    for key, cap in (("dual16_l1", "capture_l1.dat"),
+                     ("dual16_e5a", "capture_e5a.dat")):
+        (tmp / cap).write_bytes(encode_samples(np.round(caps[key] * 16),
+                                               "ibyte"))
+        old = f"filename=./{cap}"
+        if old not in text:
+            raise AssertionError(f"conf/dual_band_gps_gal.conf has no {old!r}")
+        text = text.replace(old, f"filename={tmp / cap}")
+    text += "".join(f"PVT.{k}={tmp / v}\n" for k, v in (
+        ("kml_dump_filename", "dual.kml"), ("rinex_obs_filename", "dual.obs"),
+        ("rinex_nav_filename", "dual.nav")))
+    conf = tmp / "dual_band_gps_gal.conf"
+    conf.write_text(text)
+    emit("dual_cli_capture", seconds=time.perf_counter() - t0,
+         item_type="ibyte", fs=[FS, L5_FS])
+
+    blocks, made, acquisitions = {}, [], []
+    process, init = Tracker.process_device, Receiver.__init__
+    acquire = Receiver.acquire
+
+    def counted(self, *a):
+        r = process(self, *a)
+        blocks[id(self)] = blocks.get(id(self), 0) + 1
+        return r
+
+    def recorded(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+
+    def acquired(self, *a, **kw):
+        started = acquire(self, *a, **kw)
+        acquisitions.append(started)
+        return started
+
+    runs = {}
+    Tracker.process_device = counted
+    Receiver.__init__ = recorded
+    Receiver.acquire = acquired
+    try:
+        for engine, env in (("track_blocked", None),
+                            ("track_full", "perchannel")):
+            blocks.clear()
+            acquisitions.clear()
+            k1.track_blocked.launches = 0
+            k2.track_full.launches = 0
+            with (fused_engine(env), record_blocks() as rec,
+                  contextlib.redirect_stdout(io.StringIO())):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                status = cli.run_from_config(FileConfiguration(conf))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            rx = made[-1]
+            nb = [blocks.get(id(g.tracker), 0) for g in rx.groups]
+            n1, n2 = k1.track_blocked.launches, k2.track_full.launches
+            want = {"track_blocked": (sum(nb), 0),
+                    "track_full": (0, sum(nb))}[engine]
+            if not (nb[1] > 0 and (n1, n2) == want):
+                raise AssertionError(
+                    f"dual-band CLI run ({engine}): {n1} K1 and {n2} K2 "
+                    f"launches for {nb} blocks")
+            acq = by_system(acquisitions[0])
+            steps = {g.plan.system: g.plan.acq_conf.doppler_step_hz
+                     for g in rx.groups}
+            dop_err = {s: max((abs(acq[s][p] - ref_acq[s][p])
+                               for p in acq[s] if p in ref_acq[s]),
+                              default=0.0) for s in acq}
+            e5a = next(g for g in rx.groups if g.plan.name == "5X")
+            runs[engine] = dict(
+                GNSS_SDR_TPU_FUSED=env, bands=[g.plan.band
+                                               for g in rx.groups],
+                first_acquired={s: sorted(v) for s, v in acq.items()},
+                acquired={s: sorted(v) for s, v in
+                          by_system(status.acquired).items()},
+                doppler_diff_hz=dop_err, e5a_locked=len(sec_locked(e5a)),
+                fixes=len(status.fixes), blocks=nb, k1_launches=n1,
+                k2_launches=n2, wall_s=wall, realtime_factor=6.0 / wall)
+            emit("dual_cli_run", engine=engine, **runs[engine])
+            if not (all(set(acq[s]) == set(ref_acq[s]) for s in acq)
+                    and all(dop_err[s] <= steps[s] for s in acq)
+                    and runs[engine]["e5a_locked"] >= 4):
+                raise AssertionError(
+                    f"dual-band CLI run ({engine}) disagrees with the Python "
+                    f"run: {runs[engine]}, Python {ref_acq}")
+            hold_fused_block(f"dual_cli_run {engine}", engine,
+                             rec[(engine, L5_LEN)], kernels,
+                             "track_full_dual16" if env else None)
+            if env:
+                kernels["track_full_dual16"]["launches"] = nb[1]
+    finally:
+        Tracker.process_device = process
+        Receiver.__init__ = init
+        Receiver.acquire = acquire
+    return runs
 
 
 def main() -> int:
@@ -1663,13 +2319,8 @@ def main() -> int:
     # ---- 11. K1 and K2 at the Galileo E1 shape --------------------------
     e1_kernel_phase(dev)
 
-    # ---- the Galileo captures --------------------------------------------
-    gal_caps = {}
-    for kind in GAL_SCENARIOS:
-        t0 = time.perf_counter()
-        gal_caps[kind] = gal_capture(kind)
-        emit("galileo_capture", scenario=kind,
-             seconds=time.perf_counter() - t0, samples=len(gal_caps[kind]))
+    # ---- the Galileo and dual-band captures, in worker processes --------
+    gal_caps = make_captures(list(CAPTURES), check=("e5a", 3))
 
     # ---- 12. Galileo E1-B from Python (K1) -------------------------------
     e1b = galileo_python_phase(gal_caps["e1b"], gal_scenario("e1b"), kernels)
@@ -1687,7 +2338,26 @@ def main() -> int:
     # ---- 15. gal8 at bench.py's settings ---------------------------------
     gal8_phase(gal_caps["gal8"], gal_scenario("gal8"), kernels)
 
-    # ---- 16. kernels -----------------------------------------------------
+    # ---- 16. K1, K2 and K3 at the GPS L5 and Galileo E5a shapes ----------
+    long_code_kernel_phase(dev)
+
+    # ---- 17. GPS L1 + L5 from Python (K1, assisted L5 acquisition) -------
+    dual_band_phase(gal_caps, kernels)
+
+    # ---- 18. Galileo E5a alone, assisted start; the three engines ---------
+    e5a_phase(gal_caps, kernels)
+
+    # ---- 19. the Doppler projection on the card --------------------------
+    project_doppler_phase()
+
+    # ---- 20. dual16 at bench.py's settings -------------------------------
+    ref_acq = dual16_phase(gal_caps, kernels)
+
+    # ---- 21. conf/dual_band_gps_gal.conf through the CLI, K1 and K2 ------
+    with tempfile.TemporaryDirectory() as tmp:
+        dual_cli_phase(gal_caps, ref_acq, Path(tmp), kernels)
+
+    # ---- 22. kernels -----------------------------------------------------
     meta = {
         "track_blocked": dict(
             route="cuda", source="gnss_sdr_tpu_torch/csrc/track_blocked.cu",
@@ -1710,6 +2380,11 @@ def main() -> int:
         meta[f"track_full_{case}"] = meta["track_full"]
     meta["correlator_e1bc"] = meta["correlator"]
     meta["track_blocked_gal8"] = meta["track_blocked"]
+    for case in ("l5", "e5a", "dual16"):
+        meta[f"track_blocked_{case}"] = meta["track_blocked"]
+    meta["track_full_e5a"] = meta["track_full"]
+    meta["track_full_dual16"] = meta["track_full"]
+    meta["correlator_e5a"] = meta["correlator"]
     for n in meta:
         if not kernels[n].get("launches"):
             raise AssertionError(f"{n}: no launch on its path")

@@ -1,6 +1,7 @@
-"""gnss_sdr_tpu_torch — the GPS L1 C/A and Galileo E1 receiver of
-``gnss_sdr_tpu`` on PyTorch and CUDA, from Python or from a ``.conf`` file
-(``python -m gnss_sdr_tpu_torch.main -c <file.conf>``).
+"""gnss_sdr_tpu_torch — the GPS L1 C/A and L5, Galileo E1 and E5a receiver
+of ``gnss_sdr_tpu`` on PyTorch and CUDA, on one band or two, from Python or
+from a ``.conf`` file (``python -m gnss_sdr_tpu_torch.main -c
+<file.conf>``).
 
 The package mirrors ``gnss_sdr_tpu``'s module paths and public names. The
 JAX package stays the reference; this one imports neither it nor JAX.

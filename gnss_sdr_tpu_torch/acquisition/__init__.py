@@ -1,5 +1,6 @@
 """Acquisition engines (reference: src/algorithms/acquisition/)."""
 
+from gnss_sdr_tpu_torch.acquisition.engines import AssistedAcquisition
 from gnss_sdr_tpu_torch.acquisition.pcps import (
     AcqConfig,
     AcqResults,
@@ -7,4 +8,5 @@ from gnss_sdr_tpu_torch.acquisition.pcps import (
     threshold_from_pfa,
 )
 
-__all__ = ["AcqConfig", "AcqResults", "PcpsAcquisition", "threshold_from_pfa"]
+__all__ = ["AcqConfig", "AcqResults", "AssistedAcquisition",
+           "PcpsAcquisition", "threshold_from_pfa"]

@@ -11,8 +11,11 @@ batched tensor program, chunked over the Doppler axis:
 PRN selection indexes a precomputed code-FFT table. The FFTs are
 ``torch.fft`` on complex64. Supported: coherent integration over several
 code periods, non-coherent dwells, the bit-transition double-length FFT,
-both detection statistics, Pfa-derived thresholds and the two-step
-Doppler refinement. FDMA offset tables raise ``NotImplementedError``.
+both detection statistics, Pfa-derived thresholds, the two-step
+Doppler refinement and a per-row frequency-offset table (row p searches
+offset[p] + the Doppler grid; the reported Doppler excludes the offset).
+The offsets are a device tensor that ``set_offsets`` rewrites in place
+between calls, as the assisted engine (``acquisition/engines.py``) does.
 """
 
 from __future__ import annotations
@@ -143,9 +146,13 @@ class PcpsAcquisition:
         freq_offset_table: np.ndarray | None = None,
         device: str | torch.device = "cuda",
     ) -> None:
-        if freq_offset_table is not None:
-            raise NotImplementedError("PCPS: FDMA frequency offsets")
         self.device = resolve_device(device)
+        # per-row carrier offsets (Hz, float32 as the JAX grid holds them)
+        self._offsets = (
+            None if freq_offset_table is None
+            else torch.as_tensor(
+                np.asarray(freq_offset_table, dtype=np.float32),
+                device=self.device))
         self.conf = conf
         self.prns = list(prns)
         spc = conf.samples_per_code
@@ -192,6 +199,15 @@ class PcpsAcquisition:
         else:
             self.threshold = threshold_from_pfa(conf, nb)
 
+    def set_offsets(self, offsets_hz) -> None:
+        """Rewrite the per-row offset table in place (same shape), so the
+        next call searches around the new offsets with nothing rebuilt."""
+        self._offsets.copy_(torch.as_tensor(
+            np.asarray(offsets_hz, dtype=np.float32)))
+
+    def _row_offsets(self, prn_idx: torch.Tensor) -> torch.Tensor | None:
+        return None if self._offsets is None else self._offsets[prn_idx]
+
     # ------------------------------------------------------------------ core
     def _dwell_windows(self, x: torch.Tensor) -> torch.Tensor:
         """[C, input] -> [C, K, F] dwell windows at whole-code-period stride
@@ -225,12 +241,16 @@ class PcpsAcquisition:
         spc = conf.samples_per_code
         xk = self._dwell_windows(x)
         cfc = self._codes_fft_conj[prn_idx]
+        off = self._row_offsets(prn_idx)
         c = x.shape[0]
         best_val = torch.full((c,), -math.inf, device=x.device)
         best_dop = torch.zeros(c, device=x.device)
         best_lag = torch.zeros(c, dtype=torch.int64, device=x.device)
         for dop in torch.split(self._dop, conf.doppler_chunk):
-            flat = self._grid(xk, cfc, dop).reshape(c, -1)
+            # row p searches offset[p] + the grid; the best bin is reported
+            # without the offset
+            dops = dop if off is None else dop[None, :] + off[:, None]
+            flat = self._grid(xk, cfc, dops).reshape(c, -1)
             val, idx = flat.max(dim=1)
             better = val > best_val
             best_val = torch.where(better, val, best_val)
@@ -245,8 +265,10 @@ class PcpsAcquisition:
         first_vs_second_peak_statistic)."""
         conf = self.conf
         spc = conf.samples_per_code
+        off = self._row_offsets(prn_idx)
+        dop = best_dop if off is None else best_dop + off
         g = self._grid(self._dwell_windows(x), self._codes_fft_conj[prn_idx],
-                       best_dop[:, None])[:, 0]               # [C, spc]
+                       dop[:, None])[:, 0]                    # [C, spc]
         excl = int(np.ceil(conf.fs / conf.code_rate_cps))    # 1 chip
         lags = torch.arange(spc, device=x.device)[None, :]
         lag = best_lag[:, None]
@@ -262,12 +284,15 @@ class PcpsAcquisition:
         offs = (torch.arange(nb2, dtype=torch.float32, device=x.device)
                 - conf.num_doppler_bins_step2) * np.float32(
                     conf.doppler_step2_hz)
-        dops = center_dop[:, None] + offs[None, :]            # [C, B2]
+        off = self._row_offsets(prn_idx)
+        center = center_dop if off is None else center_dop + off
+        dops = center[:, None] + offs[None, :]                # [C, B2]
         g = self._grid(self._dwell_windows(x), self._codes_fft_conj[prn_idx],
                        dops)
         val, idx = g.reshape(x.shape[0], -1).max(dim=1)
         dop = torch.gather(dops, 1, (idx // spc)[:, None])[:, 0]
-        return val, dop, idx % spc
+        # the reported Doppler excludes the offset
+        return val, (dop if off is None else dop - off), idx % spc
 
     # ------------------------------------------------------------------- API
     def acquire(self, x, prn_idx) -> AcqResults:

@@ -4,7 +4,7 @@ Counterpart of ``gnss_sdr_tpu/receiver/factory.py``, with the same
 implementation-string tables, property names and defaults. What the port
 does not carry yet raises ``NotImplementedError`` naming its ROADMAP queue
 item: plans that ``receiver/plans.py`` lacks (every signal but GPS L1 C/A
-and Galileo E1),
+and L5, Galileo E1 and Galileo E5a),
 the SignalGenerator source, and the beamformer; the conditioner raises for
 its filters and resamplers, and the receiver for acquisition and tracking
 variants other than PCPS and DLL/PLL. The conditioner runs on ``device``

@@ -1,8 +1,9 @@
 """Signal plans: everything the receiver needs to run one signal type.
 
 Counterpart of ``gnss_sdr_tpu/receiver/plans.py`` (``SignalPlan``,
-``gps_l1ca_plan``, ``galileo_e1b_plan`` and ``galileo_e1bc_plan``; the
-other signals are not ported yet, ROADMAP queue item 10). A plan bundles
+``gps_l1ca_plan``, ``galileo_e1b_plan``, ``galileo_e1bc_plan``,
+``gps_l5_plan`` and ``galileo_e5a_plan``; the other signals are not ported
+yet, ROADMAP queue item 10). A plan bundles
 the per-signal pieces the reference spreads across an adapter triple
 (Acq/Trk/Tlm) plus the code tables: the engines are built per plan, and
 the channels of a plan are one batch on the device. BOC signals use
@@ -26,9 +27,25 @@ from gnss_sdr_tpu_torch.codes.galileo_e1 import (
     galileo_e1b_sinboc_table,
     galileo_e1c_sinboc_table,
 )
+from gnss_sdr_tpu_torch.codes.galileo_e5a import (
+    e5ai_secondary_levels,
+    e5aq_secondary_levels,
+    galileo_e5ai_code_table,
+    galileo_e5aq_code_table,
+)
 from gnss_sdr_tpu_torch.codes.gps_l1_ca import gps_l1_ca_code_table
+from gnss_sdr_tpu_torch.codes.gps_l5 import (
+    gps_l5i_code_table,
+    gps_l5q_code_table,
+    nh10_levels,
+    nh20_levels,
+)
 from gnss_sdr_tpu_torch.constants import galileo_e1 as GAL
+from gnss_sdr_tpu_torch.constants import galileo_e5a as E5A
 from gnss_sdr_tpu_torch.constants import gps_l1_ca as GPS
+from gnss_sdr_tpu_torch.constants import gps_l5 as L5
+from gnss_sdr_tpu_torch.telemetry.cnav import CnavDecoder
+from gnss_sdr_tpu_torch.telemetry.fnav import FnavDecoder
 from gnss_sdr_tpu_torch.telemetry.inav import InavDecoder
 from gnss_sdr_tpu_torch.telemetry.lnav import LnavDecoder
 from gnss_sdr_tpu_torch.tracking import DllPllConf
@@ -325,5 +342,161 @@ def galileo_e1bc_plan(
         data_code_table=data_table,
         sec_pilot_table=sec_pilot,
         sec_data_levels=np.ones(1, dtype=np.float32),
+        acq_code_table=data_table,
+    )
+
+
+def gps_l5_plan(
+    fs: float,
+    num_channels: int = 8,
+    doppler_max_hz: float = 4000.0,
+    doppler_step_hz: float = 250.0,
+    acq_dwells: int = 2,
+    acq_pfa: float = 1e-3,
+    pll_bw_hz: float = 30.0,
+    dll_bw_hz: float = 2.0,
+    pll_bw_narrow_hz: float = 5.0,
+    dll_bw_narrow_hz: float = 0.5,
+    enable_fll_pull_in: bool = True,
+    fll_bw_hz: float = 4.0,
+    pull_in_time_s: float = 0.25,
+    extend_correlation_symbols: int = 20,
+    search_prns: tuple = tuple(range(1, 33)),
+    steps_per_block: int | None = None,
+) -> SignalPlan:
+    """GPS L5: pilot (Q, NH20) tracking with data (I, NH10 x CNAV) symbol
+    extraction (reference adapters GPS_L5i_PCPS_Acquisition /
+    GPS_L5_DLL_PLL_Tracking / GPS_L5_Telemetry_Decoder; signal model
+    gps_l5_signal_replica.cc, track_pilot dll_pll_conf.h:81).
+
+    Acquisition runs on the data (L5I) code with the double-length FFT:
+    NH chips flip the sign at any code boundary inside the window, and the
+    zero-padded-code FFT guarantees one cleanly correlated period
+    (pcps_acquisition.cc bit_transition_flag)."""
+    pilot_table = gps_l5q_code_table()
+    data_table = gps_l5i_code_table()
+    return SignalPlan(
+        name="L5",
+        system="G",
+        band="L5",
+        num_channels=num_channels,
+        code_table=pilot_table,
+        table_rate_cps=L5.CODE_RATE_CPS,
+        carrier_freq_hz=L5.FREQ_HZ,
+        code_period_s=L5.CODE_PERIOD_S,
+        acq_conf=AcqConfig(
+            fs=fs,
+            code_length_chips=L5.CODE_LENGTH_CHIPS,
+            code_rate_cps=L5.CODE_RATE_CPS,
+            doppler_max_hz=doppler_max_hz,
+            doppler_step_hz=doppler_step_hz,
+            max_dwells=acq_dwells,
+            bit_transition_flag=True,
+            pfa=acq_pfa,
+        ),
+        trk_conf=DllPllConf(
+            fs=fs,
+            code_length_chips=L5.CODE_LENGTH_CHIPS,
+            code_rate_cps=L5.CODE_RATE_CPS,
+            carrier_freq_hz=L5.FREQ_HZ,
+            pll_bw_hz=pll_bw_hz,
+            dll_bw_hz=dll_bw_hz,
+            pll_bw_narrow_hz=pll_bw_narrow_hz,
+            dll_bw_narrow_hz=dll_bw_narrow_hz,
+            enable_fll_pull_in=enable_fll_pull_in,
+            fll_bw_hz=fll_bw_hz,
+            pull_in_time_s=pull_in_time_s,
+            extend_correlation_symbols=extend_correlation_symbols,
+            codes_per_bit=L5.CODES_PER_SYMBOL,
+            track_pilot=True,
+            sec_len_pilot=20,
+            sec_len_data=10,
+            data_on_quadrature=True,
+            steps_per_block=steps_per_block or 20,
+            max_channels=num_channels,
+        ),
+        make_decoder=CnavDecoder,
+        search_prns=search_prns,
+        data_code_table=data_table,
+        sec_pilot_table=np.tile(nh20_levels(), (pilot_table.shape[0], 1)),
+        sec_data_levels=nh10_levels(),
+        acq_code_table=data_table,
+    )
+
+
+def galileo_e5a_plan(
+    fs: float,
+    num_channels: int = 8,
+    doppler_max_hz: float = 4000.0,
+    doppler_step_hz: float = 250.0,
+    acq_dwells: int = 2,
+    acq_pfa: float = 1e-3,
+    pll_bw_hz: float = 20.0,
+    dll_bw_hz: float = 2.0,
+    pll_bw_narrow_hz: float = 5.0,
+    dll_bw_narrow_hz: float = 0.5,
+    enable_fll_pull_in: bool = True,
+    fll_bw_hz: float = 4.0,
+    pull_in_time_s: float = 0.25,
+    extend_correlation_symbols: int = 20,
+    search_prns: tuple = tuple(range(1, 37)),
+    steps_per_block: int | None = None,
+) -> SignalPlan:
+    """Galileo E5a: pilot (Q, CS100) tracking with data (I, CS20 x FNAV)
+    symbol extraction (reference adapters Galileo_E5a_Pcps_Acquisition /
+    Galileo_E5a_DLL_PLL_Tracking / Galileo_E5a_Telemetry_Decoder; codes
+    galileo_e5_signal_replica.cc, FNAV galileo_fnav_message.cc)."""
+    # code tables carry 50 PRN rows but CS100 assignments exist for 1..47
+    # (Galileo OS SIS ICD Table 19); search lists stay within 1..36
+    pilot_table = galileo_e5aq_code_table()[:47]
+    data_table = galileo_e5ai_code_table()[:47]
+    sec_pilot = np.stack([
+        e5aq_secondary_levels(p + 1) for p in range(pilot_table.shape[0])
+    ])
+    return SignalPlan(
+        name="5X",
+        system="E",
+        band="L5",                   # E5a shares the 1176.45 MHz band
+        num_channels=num_channels,
+        code_table=pilot_table,
+        table_rate_cps=E5A.CODE_RATE_CPS,
+        carrier_freq_hz=E5A.FREQ_HZ,
+        code_period_s=E5A.CODE_PERIOD_S,
+        acq_conf=AcqConfig(
+            fs=fs,
+            code_length_chips=E5A.CODE_LENGTH_CHIPS,
+            code_rate_cps=E5A.CODE_RATE_CPS,
+            doppler_max_hz=doppler_max_hz,
+            doppler_step_hz=doppler_step_hz,
+            max_dwells=acq_dwells,
+            bit_transition_flag=True,
+            pfa=acq_pfa,
+        ),
+        trk_conf=DllPllConf(
+            fs=fs,
+            code_length_chips=E5A.CODE_LENGTH_CHIPS,
+            code_rate_cps=E5A.CODE_RATE_CPS,
+            carrier_freq_hz=E5A.FREQ_HZ,
+            pll_bw_hz=pll_bw_hz,
+            dll_bw_hz=dll_bw_hz,
+            pll_bw_narrow_hz=pll_bw_narrow_hz,
+            dll_bw_narrow_hz=dll_bw_narrow_hz,
+            enable_fll_pull_in=enable_fll_pull_in,
+            fll_bw_hz=fll_bw_hz,
+            pull_in_time_s=pull_in_time_s,
+            extend_correlation_symbols=extend_correlation_symbols,
+            codes_per_bit=E5A.CODES_PER_SYMBOL,
+            track_pilot=True,
+            sec_len_pilot=100,
+            sec_len_data=20,
+            data_on_quadrature=True,
+            steps_per_block=steps_per_block or 20,
+            max_channels=num_channels,
+        ),
+        make_decoder=FnavDecoder,
+        search_prns=search_prns,
+        data_code_table=data_table,
+        sec_pilot_table=sec_pilot,
+        sec_data_levels=e5ai_secondary_levels(),
         acq_code_table=data_table,
     )

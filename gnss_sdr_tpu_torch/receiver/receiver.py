@@ -2,16 +2,19 @@
 -> PVT.
 
 Counterpart of ``gnss_sdr_tpu/receiver/receiver.py``, for GPS L1 C/A and
-Galileo E1 (E1-B data-only, and E1-B+C with pilot tracking). Host-side
+L5, Galileo E1 (E1-B data-only, and E1-B+C with pilot tracking) and
+Galileo E5a, with one sample stream per band. Host-side
 orchestration plays the roles of the reference's
 ControlThread event loop and GNSSFlowgraph channel management around the
 batched device engines:
 
 - signals are grouped by SignalPlan; each plan owns one batched PCPS
   engine and one batched Tracker (all its channels in one device batch);
-- telemetry: per-channel decoders (LNAV, I/NAV) fed with prompt signs,
-  on pilot plans with the data component's symbols once the secondary
-  code is locked;
+  a satellite already tracked on another carrier is searched by a narrow
+  assisted engine around its projected Doppler;
+- telemetry: per-channel decoders (LNAV, I/NAV, CNAV, F/NAV) fed with
+  prompt signs, on pilot plans with the data component's symbols once the
+  secondary code is locked;
 - observables: one shared ObservablesEngine anchored by telemetry TOWs;
 - PVT: solve_pvt at a fixed epoch cadence.
 
@@ -24,7 +27,7 @@ card that raises unless "cpu" is asked for). Options the port does not
 carry yet raise ``NotImplementedError`` when switched on: multiple devices,
 OSNMA, PPP positioning, the PVT Kalman filter, loop-closure variants other
 than DLL/PLL (ROADMAP queue item 12), acquisition engines other than PCPS
-(item 11), dumps and assisted multi-band acquisition.
+(item 11) and dumps.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import numpy as np
 import torch
 
 from gnss_sdr_tpu_torch import resolve_device
-from gnss_sdr_tpu_torch.acquisition import PcpsAcquisition
+from gnss_sdr_tpu_torch.acquisition import AssistedAcquisition, PcpsAcquisition
 from gnss_sdr_tpu_torch.io.device_stream import DeviceStream
 from gnss_sdr_tpu_torch.observables.engine import ObservablesEngine
 from gnss_sdr_tpu_torch.pvt.atmosphere import KlobucharParams
@@ -112,6 +115,13 @@ class ReceiverStatus:
     iono_utc: object = None                         # decoded GpsIonoUtc
 
 
+def _rows(prns: list[int], res) -> list[tuple]:
+    """(prn, detected, statistic, Doppler, delay) for each searched PRN."""
+    return [(p, bool(res.detected[i]), float(res.test_statistic[i]),
+             float(res.doppler_hz[i]), float(res.delay_samples[i]))
+            for i, p in enumerate(prns)]
+
+
 class SignalGroup:
     """One signal type's engines + per-channel decode state."""
 
@@ -139,6 +149,9 @@ class SignalGroup:
             data_code_table=plan.data_code_table,
             sec_pilot_table=plan.sec_pilot_table,
             sec_data_levels=plan.sec_data_levels, device=device)
+        # narrow engine for satellites tracked on another band, built on
+        # first use (Receiver._assisted_engine)
+        self.assisted_acq: AssistedAcquisition | None = None
         self.decoders: dict[int, object] = {}
         self.channel_prn = [0] * plan.num_channels
         # sub-chip code phase by stamp for TOW anchoring
@@ -288,17 +301,31 @@ class Receiver:
         prns = [p for p in plan.search_prns if p not in g.channel_prn]
         if not prns:
             return {}
-        # a satellite already tracked on another carrier would get a narrow
-        # assisted search (GNSSFlowgraph::project_doppler)
-        if any(p in self._project_doppler(g) for p in prns):
-            raise NotImplementedError("receiver: assisted multi-band "
-                                      "acquisition")
 
-        xb = np.broadcast_to(x, (len(prns), n))
-        res = g.acq.acquire(xb, np.array([plan.prn_row(p) for p in prns]))
-        results = [(p, bool(res.detected[i]), float(res.test_statistic[i]),
-                    float(res.doppler_hz[i]), float(res.delay_samples[i]))
-                   for i, p in enumerate(prns)]
+        # multi-band Doppler projection (GNSSFlowgraph::project_doppler):
+        # satellites already tracked on another band get a narrow assisted
+        # search seeded with the projected Doppler dop2 = dop1 * f2 / f1
+        # instead of the full cold grid
+        proj = self._project_doppler(g)
+        prns_assist = [p for p in prns if p in proj] if (
+            plan.freq_offset_table is None and proj) else []
+        prns_cold = [p for p in prns if p not in prns_assist]
+
+        results = []                    # (prn, det, stat, dop, delay)
+        if prns_cold:
+            xb = np.broadcast_to(x, (len(prns_cold), n))
+            res = g.acq.acquire(
+                xb, np.array([plan.prn_row(p) for p in prns_cold]))
+            results += _rows(prns_cold, res)
+        if prns_assist:
+            assisted = self._assisted_engine(g, proj)
+            na = assisted.inner.conf.input_samples
+            xa = self._slice(plan.band, start, na)
+            if xa is not None:
+                xba = np.broadcast_to(xa, (len(prns_assist), na))
+                res = assisted.acquire(
+                    xba, np.array([plan.prn_row(p) for p in prns_assist]))
+                results += _rows(prns_assist, res)
 
         order = np.argsort([-r[2] for r in results])
         started = {}
@@ -357,6 +384,29 @@ class Receiver:
                 out[prn] = float(dop_row[ch]) * (
                     g.plan.carrier_freq_hz / o.plan.carrier_freq_hz)
         return out
+
+    def _assisted_engine(self, g: SignalGroup,
+                         proj: dict[int, float]) -> AssistedAcquisition:
+        """g's narrow assisted engine, built on first use and cached; its
+        per-row predicted Doppler is rewritten on each call, which rebuilds
+        nothing."""
+        plan = g.plan
+        if g.assisted_acq is None:
+            table = (plan.acq_code_table if plan.acq_code_table is not None
+                     else plan.code_table)
+            row_prns = [0] * table.shape[0]
+            for p in plan.search_prns:
+                row_prns[plan.prn_row(p)] = p
+            g.assisted_acq = AssistedAcquisition(
+                plan.acq_conf, table, row_prns,
+                {p: 0.0 for p in row_prns}, window_hz=500.0,
+                device=self.device)
+        assisted = g.assisted_acq
+        offsets = np.zeros(len(assisted._offsets_np), np.float64)
+        for p, d in proj.items():
+            offsets[plan.prn_row(p)] = d
+        assisted.set_predicted_doppler(offsets)
+        return assisted
 
     # ------------------------------------------------------------------ main
     def run(self, max_blocks: int | None = None) -> ReceiverStatus:

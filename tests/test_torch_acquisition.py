@@ -95,7 +95,41 @@ def test_peak_ratio_statistic_matches_jax():
 
 
 def test_fdma_offsets_raise():
-    with pytest.raises(NotImplementedError):
-        TPcps(TConf(fs=FS, code_length_chips=1023, code_rate_cps=1.023e6),
-              gps_l1_ca_code_table(), list(range(1, 33)),
-              freq_offset_table=np.zeros(32), device="cpu")
+    """A per-row frequency-offset table (it raised before the port carried
+    it): row p searches offset[p] + the Doppler grid, and the reported
+    Doppler excludes the offset. Against the JAX engine on a signal whose
+    carrier sits at its row's offset plus 1000 Hz, with the coarse grid,
+    the two-step zoom and the peak ratio statistic; then the table
+    rewritten in place (``set_offsets``) for a second search."""
+    offsets = np.zeros(32)
+    offsets[6], offsets[11] = 1500.0, -2250.0
+    sats = [SatelliteSignalParams(prn=7, cn0_dbhz=46.0, doppler_hz=2500.0,
+                                  delay_chips=300.25),
+            SatelliteSignalParams(prn=12, cn0_dbhz=46.0, doppler_hz=-3250.0,
+                                  delay_chips=911.0)]
+    rows = np.array([6, 11, 19])
+    for kw in ({}, dict(make_two_steps=True, doppler_step2_hz=31.25,
+                        num_doppler_bins_step2=4),
+               dict(statistic="peak1_peak2")):
+        kw = dict(dict(fs=FS, code_length_chips=G.CODE_LENGTH_CHIPS,
+                       code_rate_cps=G.CODE_RATE_CPS, doppler_max_hz=2000.0,
+                       doppler_step_hz=250.0, max_dwells=2, pfa=1e-3), **kw)
+        tbl, prns = gps_l1_ca_code_table(), list(range(1, 33))
+        je = JPcps(JConf(**kw), tbl, prns, freq_offset_table=offsets)
+        te = TPcps(TConf(**kw), tbl, prns, freq_offset_table=offsets,
+                   device="cpu")
+        x = generate_baseband(sats, FS, je.conf.input_samples, seed=1)
+        xb = np.stack([x, x, x])
+        j, t = je.acquire(xb, rows), te.acquire(xb, rows)
+        _compare(j, t)
+        assert t.detected[:2].all() and not t.detected[2], kw
+        assert abs(t.doppler_hz[0] - 1000.0) <= 250.0
+        assert abs(t.doppler_hz[1] + 1000.0) <= 250.0
+    # the table rewritten in place: PRN 7's row now searches -2500 Hz +
+    # the grid, 3 kHz away from its 2500 Hz carrier
+    before = te._offsets
+    moved = offsets.copy()
+    moved[6] = -2500.0
+    te.set_offsets(moved)
+    assert te._offsets is before
+    assert not te.acquire(xb[:1], rows[:1]).detected[0]

@@ -11,13 +11,21 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 COPIES = [
     "codes/galileo_e1.py",
+    "codes/galileo_e5a.py",
+    "codes/galileo_e5b.py",
     "codes/gps_l1_ca.py",
+    "codes/gps_l2c.py",
+    "codes/gps_l5.py",
     "codes/resample.py",
     "config/__init__.py",
     "config/configuration.py",
     "constants/galileo_e1.py",
+    "constants/galileo_e5a.py",
+    "constants/galileo_e5b.py",
     "constants/general.py",
     "constants/gps_l1_ca.py",
+    "constants/gps_l2c.py",
+    "constants/gps_l5.py",
     "io/__init__.py",
     "io/formats.py",
     "io/ion_gsms.py",
@@ -43,8 +51,11 @@ COPIES = [
     "pvt/solver.py",
     "simulate/constellation.py",
     "simulate/galileo.py",
+    "simulate/multiband.py",
     "simulate/scenario.py",
+    "telemetry/cnav.py",
     "telemetry/fec.py",
+    "telemetry/fnav.py",
     "telemetry/inav.py",
     "telemetry/lnav.py",
     "telemetry/lnav_encode.py",
@@ -67,9 +78,14 @@ def test_copy_is_verbatim(rel):
         "from gnss_sdr_tpu import", "from gnss_sdr_tpu_torch import")
 
 
-@pytest.mark.parametrize("rel", ["codes/data/galileo_e1_codes.npz"])
+@pytest.mark.parametrize("rel", [
+    "codes/data/galileo_e1_codes.npz",
+    "codes/data/galileo_e5a_codes.npz",
+    "codes/data/galileo_e5b_codes.npz",
+    "codes/data/l2c_b3i_tables.npz",
+])
 def test_data_file_is_byte_equal(rel):
-    """``codes/galileo_e1.py`` reads its code tables next to the module, so
-    the port keeps its own copy of the file."""
+    """The code modules read their tables next to themselves, so the port
+    keeps its own copy of each file."""
     original = (ROOT / "gnss_sdr_tpu" / rel).read_bytes()
     assert (ROOT / "gnss_sdr_tpu_torch" / rel).read_bytes() == original

@@ -14,6 +14,7 @@ from gnss_sdr_tpu_torch.ops import correlator as k3
 from gnss_sdr_tpu_torch.ops import track_kernel as k2
 from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
 from gnss_sdr_tpu_torch.ops.correlator import pack_code_table
+from gnss_sdr_tpu_torch.ops.slots import S_INTEG_CNT, S_SEC_IDX
 from gnss_sdr_tpu_torch.tools import mosaic_probe as p1
 
 from torch_cases import (
@@ -23,6 +24,10 @@ from torch_cases import (
     E1_KW,
     E1_LEN,
     FS,
+    L5_FS,
+    L5_KW,
+    L5_LEN,
+    L5_NMAX,
     SD,
     SP,
     TAPS,
@@ -35,6 +40,8 @@ from torch_cases import (
     correlator_rel_err,
     conf_kw,
     fused_noise_case,
+    long_code_block,
+    long_code_signal,
     pilot_inputs,
     pilot_signal,
     pilot_tables,
@@ -181,9 +188,11 @@ CORR_CASES = ([(c, t, True, False, 2688, 1023) for c in (1, 8, 33, 140)
               + [(8, 3, False, False, 2688, 1023),
                  (8, 5, True, True, 2688, 1023),
                  (8, 3, True, False, 2601, 1023),
-                 (8, 3, True, True, 26112, 10230)])
+                 (8, 3, True, True, 26112, 10230),
+                 (8, 3, True, True, 10402, 10230)])
 CORR_IDS = ([f"C{c}_T{t}" for c in (1, 8, 33, 140) for t in (3, 5)]
-            + ["nearest_chip", "data_prompt_t5", "odd_rows", "code_10230"])
+            + ["nearest_chip", "data_prompt_t5", "odd_rows", "code_10230",
+               "l5_e5a_period"])
 
 
 @pytest.mark.cuda
@@ -329,6 +338,89 @@ def test_e1_fused_kernels_match_plain_cuda(cuda, C, pilot):
         assert_rows_close(o_p[:, :2], o_k[:, :2], tol=2e-4,
                           lanes=check_lanes(5))
         assert_rows_close(o_p, o_k, tol=2e-3, lanes=check_lanes(5))
+
+
+# K1 and K2 at the GPS L5 / Galileo E5a shape (10230-chip codes at
+# 10.4 Msps, n_max 10402, T = 3 with the pilot, 20-period integration), on
+# pilot_inputs' noise window with L5's secondaries (20 and 10 chips,
+# counter modulo 20) and E5a's (100 and 20, modulo 100): K1 at R = 8, 8
+# and 4 (C = 1, 8, 33), two launches of K = 20. The integration and
+# secondary counters start short of their boundaries, as
+# tests/test_torch_long_code_kernels.py starts them. (On noise the closed
+# loops wander, and rounding differences grow past a few hundred periods:
+# the K = 500 blocks run on a signal, below.)
+LONG_SECS = {"l5": (20, 10, 20), "e5a": (100, 20, 100)}
+LONG_CASES = [(c, sig) for c in (1, 8, 33) for sig in LONG_SECS]
+LONG_IDS = [f"C{c}_{sig}" for c, sig in LONG_CASES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,sig", LONG_CASES, ids=LONG_IDS)
+def test_long_code_fused_kernels_match_plain_cuda(cuda, C, sig):
+    """K1 and K2 against their plain version over two launches of K = 20,
+    every channel closing its integration and its data symbol: the
+    long-code bounds, 2e-4 relative over the first two periods and 2e-3
+    over all (tests/test_track_kernel_blocked.py), lanes 10 and 17
+    exact."""
+    K = 20
+    sp, sd, lcm = LONG_SECS[sig]
+    kw = dict(L5_KW, track_pilot=True, sec_len_pilot=sp, sec_len_data=sd,
+              sec_lcm=lcm)
+    codes, dcodes, wr, wi, scal, secp, secd = pilot_inputs(
+        C, K, L5_NMAX, TAPS, True, sp, sd, lcm, extend=20, seed=6,
+        launches=2, code_len=L5_LEN)
+    scal[:, S_INTEG_CNT] = 18
+    scal[:, S_SEC_IDX] = (np.arange(C) * 7 + sd - 1) % lcm
+    window = (wr.ravel() + 1j * wi.ravel()).astype(np.complex64)
+    tables = (dcodes, secp, secd)
+    spec = k1.make_blocked_spec(K, L5_NMAX, L5_LEN, TAPS, **kw)
+    o_p = run_tracker(k1.track_blocked_plain, spec, window, codes, scal, 2,
+                      cuda, tables)
+    assert (o_p[:, :, 20].sum(axis=1) >= 1).all()
+    assert (o_p[:, :, 34].sum(axis=1) >= 1).all()
+    for make, fn, counter in ((k1.make_blocked_spec, k1.track_blocked,
+                               k1.track_blocked),
+                              (k2.make_full_spec, k2.track_full,
+                               k2.track_full)):
+        before = counter.launches
+        o_k = run_tracker(fn, make(K, L5_NMAX, L5_LEN, TAPS, **kw), window,
+                          codes, scal, 2, cuda, tables)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 2
+        assert_rows_close(o_p[:, :2], o_k[:, :2], tol=2e-4,
+                          lanes=check_lanes(3))
+        assert_rows_close(o_p, o_k, tol=2e-3, lanes=check_lanes(3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan_name", ["gps_l5_plan", "galileo_e5a_plan"],
+                         ids=["l5", "e5a"])
+def test_long_code_block_k500_matches_plain_cuda(cuda, plan_name):
+    """One block of K = 500 periods (bench.py's dual16 E5a block) of eight
+    channels of the plan tracking long_code_signal's channels, as the
+    tracker packs it (secondary engaged, atan2, 20-period integration): K1
+    and K2 against their plain version within the long-code bounds."""
+    from gnss_sdr_tpu_torch.receiver import plans
+
+    C, K = 8, 500
+    plan = getattr(plans, plan_name)(L5_FS, num_channels=C)
+    dops = [1200.0, -2500.0, 3400.0, -400.0, 150.0, -3900.0, 2600.0,
+            -1700.0]
+    delays = [37.0 + 1301.0 * c for c in range(C)]
+    sig = long_code_signal(plan, int(L5_FS * 0.53), dops, delays, seed=5)
+    (window, codes, scal, pos, spec), tabs = long_code_block(
+        plan, K, dops, delays, sig, cuda)
+    o_p = k1.track_blocked_plain(window, codes, scal, pos, spec,
+                                 *tabs).cpu().numpy()
+    assert (o_p[:, :, 20].sum(axis=1) >= K // 20 - 1).all()
+    for fn, counter in ((k1.track_blocked, k1.track_blocked),
+                        (k2.track_full, k2.track_full)):
+        before = counter.launches
+        o_k = fn(window, codes, scal, pos, spec, *tabs).cpu().numpy()
+        assert counter.launches == before + 1
+        assert_rows_close(o_p[:, :2], o_k[:, :2], tol=2e-4,
+                          lanes=check_lanes(3))
+        assert_rows_close(o_p, o_k, tol=2e-3, lanes=check_lanes(3))
 
 
 @pytest.mark.cuda

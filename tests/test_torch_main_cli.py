@@ -7,8 +7,9 @@ file. Both must acquire the same satellites with equal Doppler, delays
 within one sample, and leave every satellite's channel in the same
 tracking phase. The file also holds the port's CLI flag overrides, its
 conditioner adapters (bit for bit against the JAX adapters), the plans its
-factory builds from conf/gps_l1_file.conf (field by field against the JAX
-factory's) and the parts that raise ``NotImplementedError``.
+factory builds from conf/gps_l1_file.conf and conf/dual_band_gps_gal.conf
+(field by field against the JAX factory's) and the parts that raise
+``NotImplementedError``.
 """
 
 import argparse
@@ -26,6 +27,7 @@ from gnss_sdr_tpu import main as jmain
 from gnss_sdr_tpu.conditioner.adapters import ADAPTERS as J_ADAPTERS
 from gnss_sdr_tpu.config.configuration import (
     FileConfiguration as JFileConfiguration,
+    InMemoryConfiguration as JInMemoryConfiguration,
 )
 from gnss_sdr_tpu.io import encode_samples
 from gnss_sdr_tpu.receiver.factory import get_signal_plans as j_plans
@@ -46,6 +48,8 @@ from gnss_sdr_tpu_torch.receiver.factory import (
     get_signal_source,
 )
 from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+
+from torch_cases import assert_plans_equal
 
 torch.set_num_threads(2)
 
@@ -208,8 +212,8 @@ def test_factory_plans_match_jax():
                     conf, f.name)
 
 
-def _cfg(**props) -> InMemoryConfiguration:
-    cfg = InMemoryConfiguration()
+def _cfg(make=InMemoryConfiguration, **props):
+    cfg = make()
     for k, v in props.items():
         cfg.set_property(k.replace("__", "."), str(v))
     return cfg
@@ -228,12 +232,28 @@ def test_fir_filter_raises():
 
 
 def test_galileo_group_raises():
-    """Galileo E5a is not ported yet: its group names the plan and its
-    ROADMAP queue item (E1, group 1B, builds: tests/test_torch_galileo.py)."""
-    cfg = _cfg(Channels_5X__count=2)
+    """The two RF chains of conf/dual_band_gps_gal.conf (GPS L1 C/A on L1,
+    Galileo E5a, group 5X, on L5) and a GPS L5 group: both factories build
+    equal plans. Galileo E5b (group 7X) is not ported yet: its group names
+    the plan and its ROADMAP queue item."""
+    path = ROOT / "conf" / "dual_band_gps_gal.conf"
+    rates = {"L1": 2.6e6, "L5": 10.4e6}
+    jp = j_plans(JFileConfiguration(path), rates)
+    tp = get_signal_plans(FileConfiguration(path), rates)
+    assert [(p.name, p.band) for p in tp] == [(p.name, p.band) for p in jp]
+    assert [(p.name, p.band) for p in tp] == [("1C", "L1"), ("5X", "L5")]
+    for a, b in zip(jp, tp):
+        assert_plans_equal(a, b)
+    props = dict(Channels_L5__count=3, Acquisition_L5__doppler_max=3000,
+                 Tracking_L5__pll_bw_hz=25.0)
+    (ja,) = j_plans(_cfg(JInMemoryConfiguration, **props), {"L5": 10.23e6})
+    (ta,) = get_signal_plans(_cfg(**props), {"L5": 10.23e6})
+    assert_plans_equal(ja, ta)
+    assert ta.acq_conf.doppler_max_hz == 3000.0
+    cfg = _cfg(Channels_7X__count=2)
     with pytest.raises(NotImplementedError,
-                       match="galileo_e5a_plan.*queue item 10"):
-        get_signal_plans(cfg, {"L5": 10.23e6})
+                       match="galileo_e5b_plan.*queue item 10"):
+        get_signal_plans(cfg, {"E5b": 10.23e6})
 
 
 def test_signal_generator_raises():

@@ -4,6 +4,8 @@ No JAX here: the CUDA tests import this module on a machine that has only
 PyTorch.
 """
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -174,6 +176,12 @@ def run_tracker(fn, spec, window, codes, scal, launches, device,
 E1_FS = 4.0e6
 E1_KW = dict(fs=E1_FS, code_rate_cps=2.046e6, carrier_freq_hz=1575.42e6)
 E1_LEN = 8184
+# GPS L5 and Galileo E5a at 10.4 Msps: 10230-chip codes at 10.23 Mchip/s,
+# n_max as the receiver's plans give it (samples per code + 2)
+L5_FS = 10.4e6
+L5_KW = dict(fs=L5_FS, code_rate_cps=10.23e6, carrier_freq_hz=1176.45e6)
+L5_LEN = 10230
+L5_NMAX = 10402
 
 
 def pilot_inputs(C, K, nmax, taps, pilot, sp, sd, lcm, extend, seed,
@@ -338,3 +346,92 @@ def pilot_signal(n):
     rng = np.random.default_rng(1)
     return (sig + (rng.normal(size=n) + 1j * rng.normal(size=n)) * 0.05
             ).astype(np.complex64)
+
+
+def assert_plans_equal(a, b):
+    """Every field of two SignalPlans equal: arrays bit for bit (dtype
+    too), the engine confs field by field, the PRN-to-row map, and decoders
+    of one kind with the same fields."""
+    for f in dataclasses.fields(a):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if f.name in ("make_decoder", "prn_row"):
+            continue
+        if isinstance(va, np.ndarray) or isinstance(vb, np.ndarray):
+            assert va is not None and vb is not None, f.name
+            assert va.dtype == vb.dtype, f.name
+            np.testing.assert_array_equal(va, vb, err_msg=f.name)
+        elif dataclasses.is_dataclass(va):
+            for g in dataclasses.fields(va):
+                assert getattr(vb, g.name) == getattr(va, g.name), (
+                    f.name, g.name)
+        else:
+            assert va == vb, f.name
+    for prn in a.search_prns:
+        assert b.prn_row(prn) == a.prn_row(prn)
+    da, db = a.make_decoder(1), b.make_decoder(1)
+    assert type(db).__name__ == type(da).__name__
+    assert vars(db).keys() == vars(da).keys()
+
+
+def long_code_signal(plan, n, dops, delays, seed):
+    """Channels c of a GPS L5 or Galileo E5a ``plan`` (its table rows c) at
+    L5_FS: the pilot code times its secondary on the quadrature axis, the
+    data code times the data secondary and a random symbol a secondary
+    period on the in-phase axis (secondary chip 0 on the period that starts
+    at the channel's delay, in samples), at the given Dopplers, with
+    noise."""
+    rng = np.random.default_rng(seed)
+    tt = np.arange(n) / L5_FS
+    sig = np.zeros(n, np.complex64)
+    sd = plan.sec_data_levels
+    for c, (dop, dly) in enumerate(zip(dops, delays)):
+        u = np.floor((10.23e6 * (1 + dop / 1176.45e6)) * (tt - dly / L5_FS)
+                     ).astype(np.int64)
+        per = np.floor_divide(u, L5_LEN)
+        idx = u - per * L5_LEN
+        sym_i = np.floor_divide(per, len(sd))
+        sym = np.where(rng.random(int(sym_i.max() - sym_i.min()) + 1) < 0.5,
+                       1.0, -1.0)[sym_i - sym_i.min()]
+        sp = plan.sec_pilot_table[c]
+        comp = (plan.data_code_table[c][idx] * sd[per % len(sd)] * sym
+                + 1j * plan.code_table[c][idx] * sp[per % len(sp)])
+        sig += (0.35 * comp * np.exp(2j * np.pi * dop * tt + 0.3j * c)
+                ).astype(np.complex64)
+    noise = rng.normal(size=(n, 2)).astype(np.float32) * 0.05
+    return (sig + noise[:, 0] + 1j * noise[:, 1]).astype(np.complex64)
+
+
+def long_code_block(plan, K, dops, delays, window, device):
+    """The fused engine's inputs for one block of K periods of ``plan``'s
+    channels on ``window`` (long_code_signal's), as the tracker builds
+    them: each channel started at its delay 3 Hz off its Doppler, with the
+    secondary engaged at its true phase, atan2 and 20-period integration.
+    Returns (window, codes, scalars, pos, spec) and the pilot tables."""
+    import dataclasses
+
+    from gnss_sdr_tpu_torch.tracking.fused import (
+        _pack_scalars,
+        build_fused_engine,
+    )
+    from gnss_sdr_tpu_torch.tracking.tracker import Tracker
+
+    conf = dataclasses.replace(plan.trk_conf, steps_per_block=K)
+    trk = Tracker(conf, plan.code_table, plan.data_code_table,
+                  plan.sec_pilot_table, plan.sec_data_levels, device=device)
+    for ch in range(len(dops)):
+        trk.start_channel(ch, prn=ch + 1, code_row=ch,
+                          acq_delay_samples=delays[ch],
+                          acq_doppler_hz=dops[ch] + 3.0,
+                          acq_samplestamp=0, current_abs_sample=0)
+    on = torch.ones(len(dops), dtype=torch.bool, device=device)
+    st = trk.state.replace(
+        pos=torch.as_tensor(trk.pos_abs.astype(np.int32), device=device),
+        sec_active=on, use_atan2=on, narrow=on, fll_active=~on,
+        integ_len=torch.full((len(dops),), 20, dtype=torch.int32,
+                             device=device))
+    tabs = tuple(torch.as_tensor(t, device=device) for t in (
+        trk.data_codes, trk.sec_pilot, trk.sec_data))
+    return ((torch.as_tensor(window, device=device),
+             torch.as_tensor(trk.codes, device=device),
+             _pack_scalars(conf, st), st.pos, build_fused_engine(conf)),
+            tabs)
