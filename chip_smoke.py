@@ -25,10 +25,15 @@ plain version at the GPS L5 and Galileo E5a shapes (10230-chip tables at
 (assisted start, then the three engines) of ``tests/test_dual_band.py``,
 its Doppler-projection check, ``bench.py``'s dual16, and the CLI with
 ``conf/dual_band_gps_gal.conf``'s keys (two RF chains) through K1 and K2,
-held to the dual16 run. Each run is held to its test's gates, and each
-kernel it ran to its plain version on a block of the run's own inputs.
-The Galileo and dual-band captures are made in 1 s chunks by worker
-processes. Every phase prints one JSON line; any failure exits nonzero. The last two lines are
+held to the dual16 run. Then GLONASS L1 C/A (FDMA): K1 and K2 with FDMA
+against their plain version at the GLONASS shape (3.6 Msps, frequency
+channels -7..+6, K = 20 and 200), the 28 s receiver of
+``tests/test_glonass.py`` from Python, the three engines on
+``tests/test_fused_receiver.py``'s FDMA case, and the CLI with
+``Channels_1G`` keys through K1 and K2. Each run is held to its test's
+gates, and each kernel it ran to its plain version on a block of the
+run's own inputs. The Galileo, dual-band and GLONASS captures are made in
+1 s chunks by worker processes. Every phase prints one JSON line; any failure exits nonzero. The last two lines are
 the kernel table and ``{"ok": true, "device": {...}}``. Needs a CUDA
 device and the repository's ``gnss_sdr_tpu_torch`` package; imports no
 JAX.
@@ -853,27 +858,35 @@ CAPTURES = {
     "dual_l5": ("dual_l1", "l5"), "e5a": ("e5a_gal", "e5a"),
     "dual16_e5a": ("dual16_gal", "e5a"), "dual_l1": ("dual_l1", None),
     "dual16_l1": ("dual16_l1", None), "e1b": ("e1b", None),
-    "e1bc": ("e1bc", None), "gal8": ("gal8", None),
+    "e1bc": ("e1bc", None), "gal8": ("gal8", None), "glo": ("glo", None),
 }
 _SCEN_CACHE: dict = {}
 
 
 def gal_scenario(kind: str):
     """The primary scenario ``kind`` (one per process): a Galileo
-    scenario of GAL_SCENARIOS, or a GPS or Galileo scenario of the dual-band
-    runs."""
+    scenario of GAL_SCENARIOS, a GPS or Galileo scenario of the dual-band
+    runs, or the GLONASS scenario ("glo")."""
     from gnss_sdr_tpu_torch.simulate.galileo import (
         GalileoScenario,
         GalileoScenarioConfig,
+    )
+    from gnss_sdr_tpu_torch.simulate.glonass import (
+        GlonassScenario,
+        GlonassScenarioConfig,
     )
     from gnss_sdr_tpu_torch.simulate.scenario import GpsScenario, ScenarioConfig
 
     if kind not in _SCEN_CACHE:
         gps = {"dual_l1": DUAL_L1, "dual16_l1": DUAL16_L1}
         gal = dict(GAL_SCENARIOS, e5a_gal=E5A_GAL, dual16_gal=DUAL16_GAL)
-        _SCEN_CACHE[kind] = (
-            GpsScenario(ScenarioConfig(**gps[kind])) if kind in gps
-            else GalileoScenario(GalileoScenarioConfig(**gal[kind])))
+        if kind == "glo":
+            scen = GlonassScenario(GlonassScenarioConfig(**GLO_SCEN))
+        elif kind in gps:
+            scen = GpsScenario(ScenarioConfig(**gps[kind]))
+        else:
+            scen = GalileoScenario(GalileoScenarioConfig(**gal[kind]))
+        _SCEN_CACHE[kind] = scen
     return _SCEN_CACHE[kind]
 
 
@@ -1024,8 +1037,9 @@ def hold_fused_block(run: str, kname: str, rec, kernels=None,
               + codes.numel() * 4 * (2 if spec.track_pilot else 1)
               + sum(t.numel() * 4 for t in tabs[1:])
               + scal.numel() * 4 + C * 4 + C * K * LANES * 4)
-    b_ms, b_by = bound(nbytes, n_total * (fused_ops_per_sample(T)
-                                          + (16 if spec.track_pilot else 0)))
+    b_ms, b_by = bound(nbytes, n_total * (
+        fused_ops_per_sample(T) + (16 if spec.track_pilot else 0)
+        + (FDMA_OPS_PER_SAMPLE if spec.fdma else 0)))
     res = dict(max_abs_err=float(np.abs(o_p[:, :, lanes]
                                         - o_k[:, :, lanes]).max()),
                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
@@ -1218,7 +1232,7 @@ def e1_kernel_phase(dev) -> None:
                              name=f"{kname} {case} K={K}")
                 need, limit = k1.smem_need(
                     entry, dev, spec.code_len, int(spec.interp_code), 5,
-                    int(pilot), extent)
+                    int(pilot), 0, extent)
                 res = dict(max_abs_err=float(np.abs(
                     o_p[:, :, check_lanes(5)]
                     - o_k[:, :, check_lanes(5)]).max()),
@@ -2141,6 +2155,368 @@ def dual_cli_phase(caps, ref_acq, tmp: Path, kernels) -> dict:
     return runs
 
 
+# ---- GLONASS L1 C/A: FDMA -------------------------------------------------
+
+GLO_FS = 3.6e6
+GLO_LEN = 511                   # chips of the GLONASS C/A code
+GLO_DF = 562.5e3                # Hz between frequency channels
+# tests/test_glonass.py's scenario: a GNAV frame boundary 3 s in, strings
+# 1-5 complete by 13 s
+GLO_SCEN = dict(fs=GLO_FS, tow_start_s=7335.0, duration_s=28.0,
+                cn0_dbhz=46.0, max_sats=6, seed=0)
+# phase 22's channels: frequency channels from -7 to +6, whose offsets
+# (up to 3.9 MHz) alias past fs / 2
+GLO_KS = [-7, -5, -3, -1, 0, 2, 4, 6]
+# FDMA's extra operations a sample: the ramp's reduction mod 2 pi (a
+# multiply, a floor, a fused multiply-add)
+FDMA_OPS_PER_SAMPLE = 3
+
+
+def glonass_signal(n, dops, delays, ks, seed):
+    """Channels c of the GLONASS C/A code at GLO_FS on frequency channels
+    ks[c], at Dopplers dops[c] and code delays delays[c] (samples), no
+    data bits, with noise."""
+    from gnss_sdr_tpu_torch.codes.glonass_ca import glonass_ca_code
+
+    rng = np.random.default_rng(seed)
+    code = glonass_ca_code().astype(np.float32)
+    tt = np.arange(n) / GLO_FS
+    sig = np.zeros(n, np.complex64)
+    for c, (dop, dly, k) in enumerate(zip(dops, delays, ks)):
+        u = np.floor((0.511e6 * (1 + dop / 1.602e9)) * (tt - dly / GLO_FS)
+                     ).astype(np.int64)
+        sig += (0.35 * code[u % GLO_LEN] * np.exp(
+            2j * np.pi * (dop + k * GLO_DF) * tt + 0.3j * c)
+        ).astype(np.complex64)
+    noise = rng.normal(size=(n, 2)).astype(np.float32) * 0.05
+    return (sig + noise[:, 0] + 1j * noise[:, 1]).astype(np.complex64)
+
+
+def fdma_kernel_phase(dev) -> None:
+    """Phase 22: K1 and K2 with FDMA against their plain version at the
+    GLONASS shape: glonass_l1_ca_plan at 3.6 Msps (511 chips, n_max 3602,
+    T = 3), C = 8 on frequency channels -7..+6 (GLO_KS), narrow loops with
+    10-period integration, on a signal of the code (glonass_signal); one
+    block of K = 20 and of K = 200, the long-code tolerances on
+    check_lanes(3) (hold_fused_block), each timed, its bound counting the
+    FDMA operations. (The kernels line takes its GLONASS numbers from
+    blocks of the runs, phases 23-25.)"""
+    from gnss_sdr_tpu_torch.receiver.plans import glonass_l1_ca_plan
+    from gnss_sdr_tpu_torch.tracking.fused import (
+        _pack_scalars,
+        build_fused_engine,
+    )
+    from gnss_sdr_tpu_torch.tracking.tracker import Tracker
+
+    C = len(GLO_KS)
+    delays = [37.0 + 431.0 * c for c in range(C)]
+    plan = glonass_l1_ca_plan(GLO_FS, num_channels=C)
+    t0 = time.perf_counter()
+    sig = glonass_signal(int(GLO_FS * 0.205), LONG_DOPS, delays, GLO_KS, 5)
+    emit("glonass_signal", seconds=time.perf_counter() - t0,
+         samples=len(sig), ks=GLO_KS)
+    window = torch.as_tensor(sig, device=dev)
+    for K in (20, 200):
+        conf = dataclasses.replace(plan.trk_conf, steps_per_block=K)
+        trk = Tracker(conf, plan.code_table, device=dev)
+        for ch in range(C):
+            trk.start_channel(ch, prn=ch + 1, code_row=ch,
+                              acq_delay_samples=delays[ch],
+                              acq_doppler_hz=LONG_DOPS[ch] + 3.0,
+                              acq_samplestamp=0, current_abs_sample=0,
+                              carrier_offset_hz=GLO_KS[ch] * GLO_DF)
+        on = torch.ones(C, dtype=torch.bool, device=dev)
+        st = trk.state.replace(
+            pos=torch.as_tensor(trk.pos_abs.astype(np.int32), device=dev),
+            narrow=on, fll_active=~on,
+            integ_len=torch.full((C,), 10, dtype=torch.int32, device=dev))
+        rec = ((window, torch.as_tensor(trk.codes, device=dev),
+                _pack_scalars(conf, st), st.pos, build_fused_engine(conf)),
+               {}, 0)
+        for kname in ("track_blocked", "track_full"):
+            hold_fused_block(f"fdma_K{K}", kname, rec,
+                             reps=20 if K == 20 else 5)
+
+
+def glonass_gates(rx, scen) -> dict:
+    """tests/test_glonass.py::test_glonass_end_to_end_fix's gates: >= 4
+    slots in the scenario, >= 4 ephemerides, a fix, and the mean 3D error
+    over fixes[2:] under 10 m (4 satellites give an exactly determined
+    solution; the GNAV state vectors are quantized to 0.49 m an axis).
+    Returns the numbers and whether every gate holds."""
+    fixes = rx.status.fixes
+    errs = [float(np.linalg.norm(f.pos_ecef - scen.rx_ecef))
+            for f in fixes[2:]]
+    e = dict(slots=len(scen.slots), acquired=sorted(
+        prn for _, prn in rx.status.acquired),
+        ephemerides=len(rx.ephemerides), subframes=rx.status.subframes,
+        fixes=len(fixes),
+        mean_3d_m=float(np.mean(errs)) if errs else math.inf,
+        ttff_s=rx.status.ttff_s)
+    ok = (e["slots"] >= 4 and e["ephemerides"] >= 4 and e["fixes"] >= 1
+          and e["mean_3d_m"] < 10.0)
+    return e, ok
+
+
+def glonass_python_phase(capture, scen, kernels) -> dict:
+    """Phase 23: tests/test_glonass.py's end-to-end fix on the card:
+    glonass_l1_ca_plan at 3.6 Msps, 6 channels, 28 s (seed 0) on K1, fed
+    as the test feeds it (2 s, one acquisition, then 1 s a run), held to
+    its gates; K1 against its plain version on a block of the run
+    (``track_blocked_glo``). Returns the gates' numbers and the first
+    acquisition."""
+    from gnss_sdr_tpu_torch.ops import correlator as k3
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.receiver.plans import glonass_l1_ca_plan
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+
+    plan = glonass_l1_ca_plan(fs=GLO_FS, num_channels=6)
+    rx = Receiver(ReceiverConfig(fs=GLO_FS, num_channels=6), plans=[plan])
+    (blocks,) = count_blocks(rx)
+    sec = int(GLO_FS)
+    k1.track_blocked.launches = 0
+    k3.correlator.launches = 0
+    with record_blocks() as rec:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rx.feed(capture[:2 * sec])
+        first = rx.acquire()
+        rx.run()
+        for i in range(2, int(scen.cfg.duration_s)):
+            rx.feed(capture[i * sec:(i + 1) * sec])
+            rx.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    n1, n3 = k1.track_blocked.launches, k3.correlator.launches
+    if not (blocks[0] > 0 and n1 == blocks[0] and n3 == 0):
+        raise AssertionError(f"GLONASS: {n1} K1 and {n3} K3 launches for "
+                             f"{blocks[0]} blocks")
+    gates, ok = glonass_gates(rx, scen)
+    e = dict(gates, first_acquired={p: d for (_, p), (d, _) in
+                                    first.items()},
+             blocks=blocks[0], k1_launches=n1, wall_s=wall,
+             realtime_factor=scen.cfg.duration_s / wall)
+    emit("e2e_glonass_28s", **e)
+    if not ok:
+        raise AssertionError(f"GLONASS gates failed: {e}")
+    hold_fused_block("e2e_glonass_28s", "track_blocked",
+                     rec["track_blocked"], kernels, "track_blocked_glo")
+    kernels["track_blocked_glo"]["launches"] = n1
+    return dict(e, first=first)
+
+
+def fdma_engines_phase(dev, kernels) -> dict:
+    """Phase 24: tests/test_fused_receiver.py::test_fused_matches_xla_fdma
+    on the card: two channels of the GLONASS code at 8 Msps on slot
+    offsets +562.5 kHz and -1125 kHz (Dopplers 1200 and -2500 Hz), 15
+    periods a block, tracked by the eager engine (the samples wiped off in
+    float64, K3 at a zero phase), by K1 and by K2 from the same start;
+    the second blocks held to each other within that test's tolerances
+    (equal period lengths, Doppler within 0.5 Hz, median prompt relative
+    difference under 2e-2, accumulated carrier phase within 0.1 rad); K3
+    against its plain version on a period of the eager run
+    (``correlator_glo``)."""
+    from gnss_sdr_tpu_torch.codes.glonass_ca import glonass_ca_code
+    from gnss_sdr_tpu_torch.ops import correlator as k3
+    from gnss_sdr_tpu_torch.ops import track_kernel as k2
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.tracking.conf import DllPllConf
+    from gnss_sdr_tpu_torch.tracking.tracker import Tracker
+
+    fs, C, n = 8.0e6, 2, 300_000
+    dops, offs = [1200.0, -2500.0], [562.5e3, -1125.0e3]
+    code = np.tile(glonass_ca_code().astype(np.float32), (C, 1))
+    tt = np.arange(n) / fs
+    sig = np.zeros(n, np.complex64)
+    for c in range(C):
+        cph = (0.511e6 * (1 + dops[c] / 1.602e9)) * tt
+        chips = code[c][np.floor(cph).astype(np.int64) % 511]
+        sig += 0.5 * chips * np.exp(
+            2j * np.pi * (dops[c] + offs[c]) * tt + 0.3j * c)
+    rng = np.random.default_rng(5)
+    sig = (sig + (rng.normal(size=n) + 1j * rng.normal(size=n)) * 0.05
+           ).astype(np.complex64)
+    results, counts = {}, {}
+    with record_blocks() as rec:
+        for engine, fused, env in (("eager", False, None),
+                                   ("track_blocked", True, "blocked"),
+                                   ("track_full", True, "perchannel")):
+            conf = DllPllConf(
+                fs=fs, code_length_chips=511, code_rate_cps=0.511e6,
+                carrier_freq_hz=1.602e9, max_channels=C, steps_per_block=15,
+                fdma=True, fused_tracker=fused)
+            with fused_engine(env):
+                trk = Tracker(conf, code, device=dev)
+            for ch in range(C):
+                trk.start_channel(ch, prn=ch + 1, code_row=ch,
+                                  acq_delay_samples=0.0,
+                                  acq_doppler_hz=dops[ch] + 20.0,
+                                  acq_samplestamp=0, current_abs_sample=0,
+                                  carrier_offset_hz=offs[ch])
+            k3.correlator.launches = 0
+            k1.track_blocked.launches = 0
+            k2.track_full.launches = 0
+            results[engine] = [trk.process(sig, 0) for _ in range(2)]
+            torch.cuda.synchronize()
+            counts[engine] = (k3.correlator.launches,
+                              k1.track_blocked.launches,
+                              k2.track_full.launches)
+    want = {"eager": (30, 0, 0), "track_blocked": (0, 2, 0),
+            "track_full": (0, 0, 2)}
+    if counts != want:
+        raise AssertionError(f"FDMA engine launches {counts}, want {want}")
+    diffs = {}
+    for a, b in (("eager", "track_blocked"), ("eager", "track_full"),
+                 ("track_blocked", "track_full")):
+        oa, ob = results[a][1].outputs, results[b][1].outputs
+        if not np.array_equal(oa["n_samples"], ob["n_samples"]):
+            raise AssertionError(f"FDMA: {a} and {b} disagree on n_samples")
+        pa, pb = oa["prompt"], ob["prompt"]
+        d = dict(
+            doppler_hz=float(np.abs(oa["carrier_doppler"]
+                                    - ob["carrier_doppler"]).max()),
+            prompt_rel_median=float(np.median(np.abs(pa - pb)
+                                              / (np.abs(pa) + 1e-9))),
+            carrier_phase_rad=float(np.abs(oa["carrier_phase"]
+                                           - ob["carrier_phase"]).max()))
+        if not (d["doppler_hz"] < 0.5 and d["prompt_rel_median"] < 2e-2
+                and d["carrier_phase_rad"] < 0.1):
+            raise AssertionError(f"FDMA: {a} and {b} disagree: {d}")
+        diffs[f"{a}_vs_{b}"] = d
+    emit("fdma_three_engines", fs=fs, offsets_hz=offs, blocks=2,
+         launches=counts, diffs=diffs)
+    hold_correlator_block("fdma_three_engines", rec["correlator"], kernels,
+                          "correlator_glo")
+    kernels["correlator_glo"]["launches"] = counts["eager"][0]
+    return diffs
+
+
+# reference-dialect keys of a one-chain GLONASS L1 C/A receiver (the
+# repository ships no GLONASS conf; phase 25 writes this one)
+GLO_CONF = """[GNSS-SDR]
+GNSS-SDR.internal_fs_sps=3600000
+SignalSource.implementation=File_Signal_Source
+SignalSource.filename={cap}
+SignalSource.item_type=ibyte
+SignalSource.sampling_frequency=3600000
+SignalConditioner.implementation=Signal_Conditioner
+DataTypeAdapter.implementation=Ibyte_To_Complex
+InputFilter.implementation=Pass_Through
+Resampler.implementation=Pass_Through
+Channels_1G.count=6
+Channels.in_acquisition=6
+Acquisition_1G.implementation=GLONASS_L1_CA_PCPS_Acquisition
+Acquisition_1G.doppler_max=5000
+Acquisition_1G.doppler_step=250
+Tracking_1G.implementation=GLONASS_L1_CA_DLL_PLL_Tracking
+TelemetryDecoder_1G.implementation=GLONASS_L1_CA_Telemetry_Decoder
+Observables.implementation=Hybrid_Observables
+PVT.implementation=RTKLIB_PVT
+PVT.positioning_mode=Single
+PVT.display_rate_ms=1000
+PVT.kml_dump_filename={tmp}/glo.kml
+PVT.rinex_obs_filename={tmp}/glo.obs
+PVT.rinex_nav_filename={tmp}/glo.nav
+"""
+
+
+def glonass_cli_phase(capture, scen, ref, tmp: Path, kernels) -> dict:
+    """Phase 25: the .conf/CLI entry point with Channels_1G keys
+    (GLO_CONF, written into ``tmp``) on an ibyte copy of phase 23's
+    capture, through K1 and through K2; each run held to phase 23's gates
+    (glonass_gates), and its first acquisition starts phase 23's slots
+    with Doppler within one bin. Then each kernel against its plain
+    version on a block of its run (K2's as ``track_full_glo``)."""
+    from gnss_sdr_tpu_torch import main as cli
+    from gnss_sdr_tpu_torch.config.configuration import FileConfiguration
+    from gnss_sdr_tpu_torch.io import encode_samples
+    from gnss_sdr_tpu_torch.ops import track_kernel as k2
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver
+    from gnss_sdr_tpu_torch.tracking.tracker import Tracker
+
+    t0 = time.perf_counter()
+    cap = tmp / "capture_glo.dat"
+    cap.write_bytes(encode_samples(np.round(capture * 16), "ibyte"))
+    conf = tmp / "glonass_l1_file.conf"
+    conf.write_text(GLO_CONF.format(cap=cap, tmp=tmp))
+    emit("glonass_cli_capture", seconds=time.perf_counter() - t0,
+         bytes=cap.stat().st_size, item_type="ibyte", fs=GLO_FS)
+
+    blocks, made, acquisitions = [0], [], []
+    process, init = Tracker.process_device, Receiver.__init__
+    acquire = Receiver.acquire
+
+    def counted(self, *a):
+        r = process(self, *a)
+        blocks[0] += 1
+        return r
+
+    def recorded(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+
+    def acquired(self, *a, **kw):
+        started = acquire(self, *a, **kw)
+        acquisitions.append(started)
+        return started
+
+    ref_dop = {p: d for (_, p), (d, _) in ref.items()}
+    runs = {}
+    Tracker.process_device = counted
+    Receiver.__init__ = recorded
+    Receiver.acquire = acquired
+    try:
+        for engine, env in (("track_blocked", None),
+                            ("track_full", "perchannel")):
+            blocks[0] = 0
+            acquisitions.clear()
+            k1.track_blocked.launches = 0
+            k2.track_full.launches = 0
+            with (fused_engine(env), record_blocks() as rec,
+                  contextlib.redirect_stdout(io.StringIO())):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                cli.run_from_config(FileConfiguration(conf))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            n1, n2 = k1.track_blocked.launches, k2.track_full.launches
+            want = {"track_blocked": (blocks[0], 0),
+                    "track_full": (0, blocks[0])}[engine]
+            if not (blocks[0] > 0 and (n1, n2) == want):
+                raise AssertionError(
+                    f"GLONASS CLI run ({engine}): {n1} K1 and {n2} K2 "
+                    f"launches for {blocks[0]} blocks")
+            first = {p: d for (_, p), (d, _) in acquisitions[0].items()}
+            step = made[-1].groups[0].plan.acq_conf.doppler_step_hz
+            gates, ok = glonass_gates(made[-1], scen)
+            runs[engine] = dict(
+                gates, GNSS_SDR_TPU_FUSED=env,
+                first_acquired=first,
+                doppler_diff_hz=max((abs(first[p] - ref_dop[p])
+                                     for p in first if p in ref_dop),
+                                    default=0.0),
+                blocks=blocks[0], k1_launches=n1, k2_launches=n2,
+                wall_s=wall, realtime_factor=scen.cfg.duration_s / wall)
+            emit("glonass_cli_run", engine=engine, **runs[engine])
+            if not (ok and set(first) == set(ref_dop)
+                    and runs[engine]["doppler_diff_hz"] <= step):
+                raise AssertionError(
+                    f"GLONASS CLI run ({engine}) fails its gates or "
+                    f"disagrees with the Python run: {runs[engine]}, Python "
+                    f"{ref_dop}")
+            hold_fused_block(f"glonass_cli_run {engine}", engine,
+                             rec[engine], kernels,
+                             "track_full_glo" if env else None)
+            if env:
+                kernels["track_full_glo"]["launches"] = n2
+    finally:
+        Tracker.process_device = process
+        Receiver.__init__ = init
+        Receiver.acquire = acquire
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2175,14 +2551,14 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=_build.build_seconds)
     # registers, stack frame and spills of K1-K4 and P1 (ptxas -v), one
-    # entry per instantiation: K1 and K2 per tap count, pilot mode and
-    # replica form, K3 per tap count,
+    # entry per instantiation: K1 and K2 per tap count, pilot mode, FDMA
+    # and replica form, K3 per tap count,
     # replica form and data prompt, K4 per tap count and replica form, P1
     # per variant and cluster size (R = 1, 2, 4, 8; narrow has one)
     found = _build.kernel_resources(_build.build_log)
     res = {}
-    for kname, tag, want in (("track_blocked", "BlockedLoop", 8),
-                             ("track_full", "track_full_kernel", 8),
+    for kname, tag, want in (("track_blocked", "BlockedLoop", 16),
+                             ("track_full", "track_full_kernel", 16),
                              ("correlator", "correlator_kernel", 8),
                              ("track_simple", "SimpleLoop", 4),
                              ("probe", "probe_", 41)):
@@ -2319,7 +2695,7 @@ def main() -> int:
     # ---- 11. K1 and K2 at the Galileo E1 shape --------------------------
     e1_kernel_phase(dev)
 
-    # ---- the Galileo and dual-band captures, in worker processes --------
+    # ---- the Galileo, dual-band and GLONASS captures, in worker processes
     gal_caps = make_captures(list(CAPTURES), check=("e5a", 3))
 
     # ---- 12. Galileo E1-B from Python (K1) -------------------------------
@@ -2357,7 +2733,21 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         dual_cli_phase(gal_caps, ref_acq, Path(tmp), kernels)
 
-    # ---- 22. kernels -----------------------------------------------------
+    # ---- 22. K1 and K2 with FDMA at the GLONASS shape --------------------
+    fdma_kernel_phase(dev)
+
+    # ---- 23. GLONASS L1 C/A from Python (K1) ------------------------------
+    glo = glonass_python_phase(gal_caps["glo"], gal_scenario("glo"), kernels)
+
+    # ---- 24. the three engines under FDMA ---------------------------------
+    fdma_engines_phase(dev, kernels)
+
+    # ---- 25. GLONASS through the CLI (Channels_1G), K1 and K2 -------------
+    with tempfile.TemporaryDirectory() as tmp:
+        glonass_cli_phase(gal_caps["glo"], gal_scenario("glo"), glo["first"],
+                          Path(tmp), kernels)
+
+    # ---- 26. kernels -----------------------------------------------------
     meta = {
         "track_blocked": dict(
             route="cuda", source="gnss_sdr_tpu_torch/csrc/track_blocked.cu",
@@ -2385,6 +2775,9 @@ def main() -> int:
     meta["track_full_e5a"] = meta["track_full"]
     meta["track_full_dual16"] = meta["track_full"]
     meta["correlator_e5a"] = meta["correlator"]
+    meta["track_blocked_glo"] = meta["track_blocked"]
+    meta["track_full_glo"] = meta["track_full"]
+    meta["correlator_glo"] = meta["correlator"]
     for n in meta:
         if not kernels[n].get("launches"):
             raise AssertionError(f"{n}: no launch on its path")

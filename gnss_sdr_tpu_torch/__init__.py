@@ -1,5 +1,6 @@
-"""gnss_sdr_tpu_torch — the GPS L1 C/A and L5, Galileo E1 and E5a receiver
-of ``gnss_sdr_tpu`` on PyTorch and CUDA, on one band or two, from Python or
+"""gnss_sdr_tpu_torch — the GPS L1 C/A and L5, QZSS L1 C/A and L5, Galileo
+E1, E5a and E5b, and GLONASS L1 and L2 C/A (FDMA) receiver of
+``gnss_sdr_tpu`` on PyTorch and CUDA, on one band or two, from Python or
 from a ``.conf`` file (``python -m gnss_sdr_tpu_torch.main -c
 <file.conf>``).
 

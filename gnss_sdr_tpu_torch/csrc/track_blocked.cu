@@ -33,7 +33,9 @@
 // closure below; one CTA barrier hands on the geometry. This file supplies
 // K1's loop policy: the State<T> of the slots, load_state and close_loop
 // (extended integration, FLL, the atan2 flag, enabled gating, NELP at
-// T = 3 and VEML at T = 5, and the pilot/secondary mode). Each CTA holds
+// T = 3 and VEML at T = 5, the pilot/secondary mode, and FDMA, the
+// per-channel carrier offset of GLONASS: three more float operations a
+// sample, the ramp's reduction mod 2 pi). Each CTA holds
 // its channel's code table in shared memory, and in pilot mode the data
 // code and the two secondary rows too (2 x 32 KB + 1 KB at E1's 8184-unit
 // sinBOC tables).
@@ -52,73 +54,77 @@ struct PilotHolder<true> {
   Pilot pilot;
 };
 
-// K1's loop policy for cluster_track_kernel
-template <int NT, bool PL>
+// K1's loop policy for cluster_track_kernel (FD: the FDMA mode)
+template <int NT, bool PL, bool FD = false>
 struct BlockedLoop : PilotHolder<PL> {
   static constexpr int T = NT;
   static constexpr bool PILOT = PL;
+  static constexpr bool FDMA = FD;
   using St = State<NT>;
   // a disabled channel stays where it is
   __device__ static bool advances(const float* sc) { return sc[S_EN] > 0.5f; }
   __device__ void load(St& s, const float* sc, const int* pos_in, int c,
                        const Params& P) const {
-    load_state<NT>(s, sc, pos_in[c], P);
+    load_state<NT, FD>(s, sc, pos_in[c], P);
   }
   __device__ void close(St& s, const Params& P, const float* taps,
                         float* row, const float* sec_p,
                         const float* sec_d) const {
     if constexpr (PL)
-      close_loop<NT, true>(s, P, this->pilot, taps, row, sec_p, sec_d);
+      close_loop<NT, true, FD>(s, P, this->pilot, taps, row, sec_p, sec_d);
     else
-      close_loop<NT, false>(s, P, NoPilot{}, taps, row, sec_p, sec_d);
+      close_loop<NT, false, FD>(s, P, NoPilot{}, taps, row, sec_p, sec_d);
   }
 };
 
-template <int NT, bool PL>
+template <int NT, bool PL, bool FD>
 cudaError_t dispatch(bool interp, const float2* w, const float* cd,
                      const float* sc, const int* ps, float* o, int c,
                      int ranks, int width, const Params& P,
                      const Pilot& pilot, cudaStream_t s) {
-  BlockedLoop<NT, PL> loop{};
+  using L = BlockedLoop<NT, PL, FD>;
+  L loop{};
   if constexpr (PL) loop.pilot = pilot;
-  return interp ? cluster_launch<BlockedLoop<NT, PL>, true>(
-                      w, cd, sc, ps, o, c, ranks, width, P, loop, s)
-                : cluster_launch<BlockedLoop<NT, PL>, false>(
-                      w, cd, sc, ps, o, c, ranks, width, P, loop, s);
+  return interp ? cluster_launch<L, true>(w, cd, sc, ps, o, c, ranks, width,
+                                          P, loop, s)
+                : cluster_launch<L, false>(w, cd, sc, ps, o, c, ranks, width,
+                                           P, loop, s);
 }
 
-template <int NT, bool PL>
+template <int NT, bool PL, bool FD>
 cudaError_t max_clusters(bool interp, int c, int ranks, int width,
                          const Params& P, int* n) {
-  return interp ? cluster_max<BlockedLoop<NT, PL>, true>(c, ranks, width, P, n)
-                : cluster_max<BlockedLoop<NT, PL>, false>(c, ranks, width, P,
-                                                          n);
+  using L = BlockedLoop<NT, PL, FD>;
+  return interp ? cluster_max<L, true>(c, ranks, width, P, n)
+                : cluster_max<L, false>(c, ranks, width, P, n);
 }
 
-template <int NT, bool PL>
+template <int NT, bool PL, bool FD>
 cudaError_t smem(bool interp, int width, const Params& P, int* need,
                  int* limit) {
+  using L = BlockedLoop<NT, PL, FD>;
   const size_t b = track_smem_bytes(ring_shape(width), P.code_len, PL);
-  return interp
-      ? allow_smem(cluster_track_kernel<BlockedLoop<NT, PL>, true>, b, need,
-                   limit)
-      : allow_smem(cluster_track_kernel<BlockedLoop<NT, PL>, false>, b, need,
-                   limit);
+  return interp ? allow_smem(cluster_track_kernel<L, true>, b, need, limit)
+                : allow_smem(cluster_track_kernel<L, false>, b, need, limit);
 }
 
-// the instantiation for (num_taps, pilot): T = 3 or 5, with or without the
-// pilot mode
+// the instantiation for (num_taps, pilot, fdma): T = 3 or 5, with or
+// without the pilot mode, with or without FDMA
+#define GNSS_BLOCKED_PILOT(FN, T, FD, ...)                                 \
+  (pilot ? FN<T, true, FD>(__VA_ARGS__) : FN<T, false, FD>(__VA_ARGS__))
+#define GNSS_BLOCKED_TAPS(FN, FD, ...)                                     \
+  (num_taps == 3 ? GNSS_BLOCKED_PILOT(FN, 3, FD, __VA_ARGS__)              \
+                 : GNSS_BLOCKED_PILOT(FN, 5, FD, __VA_ARGS__))
 #define GNSS_BLOCKED_SWITCH(FN, ...)                                       \
-  (num_taps == 3 ? (pilot ? FN<3, true>(__VA_ARGS__)                       \
-                          : FN<3, false>(__VA_ARGS__))                     \
-                 : (pilot ? FN<5, true>(__VA_ARGS__)                       \
-                          : FN<5, false>(__VA_ARGS__)))
+  (fdma ? GNSS_BLOCKED_TAPS(FN, true, __VA_ARGS__)                         \
+        : GNSS_BLOCKED_TAPS(FN, false, __VA_ARGS__))
 
 }  // namespace
 
 // window (complex64 [L] as float2), codes (f32 [C, code_len]), scalars
 // (f32 [C, ns]), pos (int32 [C]), out (f32 [C, K, 128]); num_taps 3 or 5;
-// with track_pilot the data code (f32 [C, code_len]), the secondary rows
+// with fdma the carrier offset in scalar slot S_ACC0 + 2 num_taps; with
+// track_pilot the data code (f32 [C, code_len]), the secondary rows
 // sec_p (f32 [C, sec[0]]) and sec_d (f32 [C, sec[1]]) and sec = {sec_wp,
 // sec_wd, sec_len_pilot, sec_len_data, sec_lcm} (csrc/track_loop.cuh
 // make_pilot); ranks CTAs per channel (a power of two <= 8) each covering
@@ -130,9 +136,10 @@ extern "C" int gnss_track_blocked(const void* window, int window_len,
                                   const void* params, int num_taps,
                                   int pll_order, int dll_order,
                                   int interp_code, int track_pilot,
-                                  const void* dcodes, const void* sec_p,
-                                  const void* sec_d, const int* sec,
-                                  int ranks, int width, void* stream) {
+                                  int fdma_flag, const void* dcodes,
+                                  const void* sec_p, const void* sec_d,
+                                  const int* sec, int ranks, int width,
+                                  void* stream) {
   if ((num_taps != 3 && num_taps != 5)
       || !valid_cluster_shape(c, ranks, width, n_max))
     return (int)cudaErrorInvalidValue;
@@ -140,6 +147,7 @@ extern "C" int gnss_track_blocked(const void* window, int window_len,
                                window_len, code_len, ns, n_periods, n_max,
                                pll_order, dll_order);
   const bool pilot = track_pilot != 0;
+  const bool fdma = fdma_flag != 0;
   Pilot pl = {};
   if (pilot && !make_pilot(pl, dcodes, sec_p, sec_d, sec))
     return (int)cudaErrorInvalidValue;
@@ -152,13 +160,14 @@ extern "C" int gnss_track_blocked(const void* window, int window_len,
 }
 
 // How many clusters of `ranks` CTAs (slices of `width` samples, a
-// `code_len`-chip table, num_taps taps, the pilot mode or not) the card
-// holds at once, into *n (0 when a CTA's shared memory does not fit).
+// `code_len`-chip table, num_taps taps, the pilot mode or not, FDMA or
+// not) the card holds at once, into *n (0 when a CTA's shared memory does
+// not fit).
 extern "C" int gnss_track_blocked_max_clusters(int c, int code_len,
                                                int n_max, int interp_code,
                                                int num_taps, int track_pilot,
-                                               int ranks, int width,
-                                               int* n) {
+                                               int fdma_flag, int ranks,
+                                               int width, int* n) {
   if ((num_taps != 3 && num_taps != 5)
       || !valid_cluster_shape(c, ranks, width, n_max))
     return (int)cudaErrorInvalidValue;
@@ -166,6 +175,7 @@ extern "C" int gnss_track_blocked_max_clusters(int c, int code_len,
   P.code_len = code_len;
   P.n_max = n_max;
   const bool pilot = track_pilot != 0;
+  const bool fdma = fdma_flag != 0;
   const cudaError_t e = GNSS_BLOCKED_SWITCH(max_clusters, interp_code != 0,
                                             c, ranks, width, P, n);
   return (int)e;
@@ -176,12 +186,14 @@ extern "C" int gnss_track_blocked_max_clusters(int c, int code_len,
 // returns cudaErrorInvalidValue when need > limit.
 extern "C" int gnss_track_blocked_smem(int code_len, int interp_code,
                                        int num_taps, int track_pilot,
-                                       int width, int* need, int* limit) {
+                                       int fdma_flag, int width, int* need,
+                                       int* limit) {
   if ((num_taps != 3 && num_taps != 5) || width <= 0)
     return (int)cudaErrorInvalidValue;
   Params P = {};
   P.code_len = code_len;
   const bool pilot = track_pilot != 0;
+  const bool fdma = fdma_flag != 0;
   return (int)GNSS_BLOCKED_SWITCH(smem, interp_code != 0, width, P, need,
                                   limit);
 }

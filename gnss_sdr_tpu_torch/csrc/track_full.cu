@@ -4,9 +4,11 @@
 //
 // Replaces the TPU kernel gnss_sdr_tpu/ops/track_kernel.py,
 // make_fused_tracker_full (pallas_call at :937), which runs one grid
-// program per channel. It computes what that kernel computes (:565-904)
-// but FDMA: T = 3 or 5 taps (NELP or VEML), and the pilot/secondary mode
-// with the data prompt; with the same scalar slots and output lanes
+// program per channel. It computes what that kernel computes (:565-904):
+// T = 3 or 5 taps (NELP or VEML), the pilot/secondary mode with the data
+// prompt, and FDMA (the carrier offset in the step, the ramp reduced mod
+// 2 pi, :494, :590, :622-628, :833-836); with the same scalar slots and
+// output lanes
 // (ops/slots.py), and what K1 (csrc/track_blocked.cu) computes on the same
 // inputs: the two kernels share the per-sample step, the sample ring and
 // the per-channel section (csrc/track_loop.cuh) and differ only in how a
@@ -44,7 +46,7 @@
 
 namespace {
 
-template <int T, bool INTERP, bool PILOT>
+template <int T, bool INTERP, bool PILOT, bool FDMA>
 __global__ void __launch_bounds__(RING_THREADS)
 track_full_kernel(const float2* __restrict__ window,
                   const float* __restrict__ codes,
@@ -83,7 +85,7 @@ track_full_kernel(const float2* __restrict__ window,
   __syncthreads();
 
   State<T> st;
-  load_state<T>(st, scalars + (size_t)c * P.ns, pos_in[c], P);
+  load_state<T, FDMA>(st, scalars + (size_t)c * P.ns, pos_in[c], P);
   period_geometry(st, P);
   const bool en = st.en > 0.5f;
 
@@ -93,7 +95,7 @@ track_full_kernel(const float2* __restrict__ window,
 
   int g_next = 0;
   for (int it = 0; it < P.n_periods; ++it) {
-    const Geo g = geo_of(st, P);
+    const Geo g = geo_of<FDMA>(st, P);
     const int len = min(g.n, R.width);
     if (warp == NCW) {
       g_next = ring_produce_period(window, P.window_len, ring, full, empty,
@@ -103,7 +105,7 @@ track_full_kernel(const float2* __restrict__ window,
       float acc_re[NT / 2], acc_im[NT / 2];
 #pragma unroll
       for (int t = 0; t < NT / 2; ++t) acc_re[t] = acc_im[t] = 0.0f;
-      ring_consume_period<T, INTERP, PILOT>(
+      ring_consume_period<T, INTERP, PILOT, FDMA>(
           window, ring, full, empty, R, s_code, s_dcode, P.code_len, offs, g,
           it, 0, len, tid, NCW * 32, lane, acc_re, acc_im);
 #pragma unroll
@@ -128,8 +130,9 @@ track_full_kernel(const float2* __restrict__ window,
       for (int w = 0; w < NCW; ++w) v += s_part[it & 1][w][j];
       taps[j] = v;
     }
-    close_loop<T, PILOT>(st, P, pilot, taps, tid == 0 ? s_row : nullptr,
-                         s_sec, s_sec + SEC_MAX);
+    close_loop<T, PILOT, FDMA>(st, P, pilot, taps,
+                               tid == 0 ? s_row : nullptr, s_sec,
+                               s_sec + SEC_MAX);
     period_geometry(st, P);
     if (warp == 0) {
       __syncwarp();
@@ -145,7 +148,7 @@ inline RingShape full_ring(int n_max) {
   return ring_shape((n_max + COPY_ALIGN - 1) / COPY_ALIGN * COPY_ALIGN);
 }
 
-template <int T, bool PILOT>
+template <int T, bool PILOT, bool FDMA>
 cudaError_t launch(bool interp, const float2* window, const float* codes,
                    const float* scalars, const int* pos, float* out, int c,
                    const Params& P, const Pilot& pl, cudaStream_t stream) {
@@ -154,31 +157,37 @@ cudaError_t launch(bool interp, const float2* window, const float* codes,
   const RingShape R = full_ring(P.n_max);
   const size_t smem = track_smem_bytes(R, P.code_len, PILOT);
   cudaError_t e = interp
-      ? allow_smem(track_full_kernel<T, true, PILOT>, smem)
-      : allow_smem(track_full_kernel<T, false, PILOT>, smem);
+      ? allow_smem(track_full_kernel<T, true, PILOT, FDMA>, smem)
+      : allow_smem(track_full_kernel<T, false, PILOT, FDMA>, smem);
   if (e != cudaSuccess) return e;
   if (interp)
-    track_full_kernel<T, true, PILOT><<<c, RING_THREADS, smem, stream>>>(
-        window, codes, scalars, pos, out, P, R, pilot);
+    track_full_kernel<T, true, PILOT, FDMA>
+        <<<c, RING_THREADS, smem, stream>>>(window, codes, scalars, pos, out,
+                                            P, R, pilot);
   else
-    track_full_kernel<T, false, PILOT><<<c, RING_THREADS, smem, stream>>>(
-        window, codes, scalars, pos, out, P, R, pilot);
+    track_full_kernel<T, false, PILOT, FDMA>
+        <<<c, RING_THREADS, smem, stream>>>(window, codes, scalars, pos, out,
+                                            P, R, pilot);
   return cudaGetLastError();
 }
 
-template <int T, bool PILOT>
+template <int T, bool PILOT, bool FDMA>
 cudaError_t smem(bool interp, const Params& P, int* need, int* limit) {
   const size_t b = track_smem_bytes(full_ring(P.n_max), P.code_len, PILOT);
-  return interp ? allow_smem(track_full_kernel<T, true, PILOT>, b, need, limit)
-                : allow_smem(track_full_kernel<T, false, PILOT>, b, need,
-                             limit);
+  return interp
+      ? allow_smem(track_full_kernel<T, true, PILOT, FDMA>, b, need, limit)
+      : allow_smem(track_full_kernel<T, false, PILOT, FDMA>, b, need, limit);
 }
 
+// the instantiation for (num_taps, pilot, fdma)
+#define GNSS_FULL_PILOT(FN, T, FD, ...)                                    \
+  (pilot ? FN<T, true, FD>(__VA_ARGS__) : FN<T, false, FD>(__VA_ARGS__))
+#define GNSS_FULL_TAPS(FN, FD, ...)                                        \
+  (num_taps == 3 ? GNSS_FULL_PILOT(FN, 3, FD, __VA_ARGS__)                 \
+                 : GNSS_FULL_PILOT(FN, 5, FD, __VA_ARGS__))
 #define GNSS_FULL_SWITCH(FN, ...)                                          \
-  (num_taps == 3 ? (pilot ? FN<3, true>(__VA_ARGS__)                       \
-                          : FN<3, false>(__VA_ARGS__))                     \
-                 : (pilot ? FN<5, true>(__VA_ARGS__)                       \
-                          : FN<5, false>(__VA_ARGS__)))
+  (fdma ? GNSS_FULL_TAPS(FN, true, __VA_ARGS__)                            \
+        : GNSS_FULL_TAPS(FN, false, __VA_ARGS__))
 
 }  // namespace
 
@@ -190,15 +199,17 @@ extern "C" int gnss_track_full(const void* window, int window_len,
                                void* out, int c, int n_periods, int n_max,
                                const void* params, int num_taps,
                                int pll_order, int dll_order, int interp_code,
-                               int track_pilot, const void* dcodes,
-                               const void* sec_p, const void* sec_d,
-                               const int* sec, void* stream) {
+                               int track_pilot, int fdma_flag,
+                               const void* dcodes, const void* sec_p,
+                               const void* sec_d, const int* sec,
+                               void* stream) {
   if ((num_taps != 3 && num_taps != 5) || c <= 0)
     return (int)cudaErrorInvalidValue;
   const Params P = make_params(static_cast<const float*>(params), num_taps,
                                window_len, code_len, ns, n_periods, n_max,
                                pll_order, dll_order);
   const bool pilot = track_pilot != 0;
+  const bool fdma = fdma_flag != 0;
   Pilot pl = {};
   if (pilot && !make_pilot(pl, dcodes, sec_p, sec_d, sec))
     return (int)cudaErrorInvalidValue;
@@ -214,13 +225,15 @@ extern "C" int gnss_track_full(const void* window, int window_len,
 // (*need, bytes, static included) and the card's opt-in limit per block
 // (*limit); returns cudaErrorInvalidValue when need > limit.
 extern "C" int gnss_track_full_smem(int code_len, int interp_code,
-                                    int num_taps, int track_pilot, int n_max,
-                                    int* need, int* limit) {
+                                    int num_taps, int track_pilot,
+                                    int fdma_flag, int n_max, int* need,
+                                    int* limit) {
   if ((num_taps != 3 && num_taps != 5) || n_max <= 0)
     return (int)cudaErrorInvalidValue;
   Params P = {};
   P.code_len = code_len;
   P.n_max = n_max;
   const bool pilot = track_pilot != 0;
+  const bool fdma = fdma_flag != 0;
   return (int)GNSS_FULL_SWITCH(smem, interp_code != 0, P, need, limit);
 }

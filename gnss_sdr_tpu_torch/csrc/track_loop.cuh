@@ -30,9 +30,16 @@
 // (S_SEC_ACT) each period's taps are wiped by the pilot secondary chip and
 // the data prompt by the data secondary chip, both at the period's
 // secondary index, which runs modulo sec_lcm; the data accumulator closes
-// a symbol every sec_len_data periods. Both are template parameters: the
-// GPS instantiation (T = 3, no PILOT) runs the float operations it ran
-// before the modes were added, in the same order.
+// a symbol every sec_len_data periods. FDMA adds the TPU kernel's
+// per-channel carrier offset (:308, :386-399, :597-600; GLONASS): w_off,
+// rad/sample in scalar slot S_ACC0 + 2T, joins the carrier step, the
+// per-sample phase is reduced mod 2 pi before the sine and cosine, and the
+// NCO advances by the offset step; each of the three sums is one fused
+// multiply-add (__fmaf_rn), as XLA contracts them in the TPU kernel and as
+// the plain version (ops/track_kernel_blocked.py) rounds them. All three
+// are template parameters: the GPS instantiation (T = 3, no PILOT, no FDMA)
+// runs the float operations it ran before the modes were added, in the
+// same order.
 
 #pragma once
 
@@ -49,6 +56,7 @@ namespace {
 
 constexpr int LANES = 128;
 constexpr float TWO_PI = 6.2831855f;  // float32(2 pi)
+constexpr float INV_TWO_PI = 0.15915494f;  // float32(1 / (2 pi))
 
 // scalar slots (ops/slots.py)
 constexpr int S_REM = 1, S_DCODE = 2, S_PHASE = 3, S_DOP = 4;
@@ -163,6 +171,7 @@ struct State {
   float acc[2 * T];
   // per-launch channel constants
   float en, integ_len, atan2_flag, fll, pll_bw, dll_bw, w0p, w0d, sec_act;
+  float w_off;         // FDMA: the carrier offset, rad/sample
   // this period's geometry
   float delta, code_step, n;
 };
@@ -199,12 +208,24 @@ __device__ __forceinline__ float fmod_period(float i, float m) {
   return __fsub_rn(i, __fmul_rn(m, floorf(i / m)));
 }
 
+// the FDMA carrier step (2 pi / fs) * dop + w_off, rounded once
+template <class S>
+__device__ __forceinline__ float fdma_step(const S& s, const Params& P) {
+  return __fmaf_rn(TWO_PI * P.inv_fs, s.dop, s.w_off);
+}
+
+// ph - 2 pi floor(ph / 2 pi) for the FDMA ramp: the quotient as a product
+// with float32(1 / 2 pi), the difference one fused multiply-add
+__device__ __forceinline__ float fdma_reduce(float ph) {
+  return __fmaf_rn(-TWO_PI, floorf(__fmul_rn(ph, INV_TWO_PI)), ph);
+}
+
 // accumulation, discriminators, loop filters and NCO advance for one
 // period (the per-channel section); fills the output row unless row is
 // null (every thread of a CTA may run it; one writes the row). taps holds
 // the 2T tap sums, then with PILOT the data prompt's two; sec_p and sec_d
 // are the channel's secondary rows (PILOT only)
-template <int T, bool PILOT>
+template <int T, bool PILOT, bool FDMA = false>
 __device__ void close_loop(State<T>& s, const Params& P,
                            const PilotOf<PILOT>& pl, const float* taps,
                            float* row, const float* sec_p,
@@ -329,10 +350,17 @@ __device__ void close_loop(State<T>& s, const Params& P,
                : s.dcode;
 
   // NCO advance over the consumed period, at the Doppler in force during it
-  const float dphi = (TWO_PI * P.inv_fs) * s.dop * s.n;
-  float phase_adv = __fadd_rn(s.phase, dphi);
-  phase_adv = __fsub_rn(phase_adv,
-                        __fmul_rn(TWO_PI, floorf(phase_adv / TWO_PI)));
+  float phase_adv;
+  if constexpr (FDMA) {
+    phase_adv = __fmaf_rn(fdma_step(s, P), s.n, s.phase);
+    phase_adv = __fmaf_rn(-TWO_PI, floorf(__fdiv_rn(phase_adv, TWO_PI)),
+                          phase_adv);
+  } else {
+    const float dphi = (TWO_PI * P.inv_fs) * s.dop * s.n;
+    phase_adv = __fadd_rn(s.phase, dphi);
+    phase_adv = __fsub_rn(phase_adv,
+                          __fmul_rn(TWO_PI, floorf(phase_adv / TWO_PI)));
+  }
   const float rem_adv = fmaxf(
       __fadd_rn(s.rem,
                 __fadd_rn(__fadd_rn(__fmul_rn(__fsub_rn(s.n, P.spcf),
@@ -395,7 +423,7 @@ __device__ void close_loop(State<T>& s, const Params& P,
   s.accd_cnt = data_boundary ? 0.0f : accd_cnt_new;
 }
 
-template <int T>
+template <int T, bool FDMA = false>
 __device__ void load_state(State<T>& s, const float* sc, int pos,
                            const Params& P) {
   s.pos = pos;
@@ -423,6 +451,7 @@ __device__ void load_state(State<T>& s, const float* sc, int pos,
   s.pll_bw = sc[S_PLL_BW];
   s.dll_bw = sc[S_DLL_BW];
   s.sec_act = sc[S_SEC_ACT];
+  if constexpr (FDMA) s.w_off = sc[S_ACC0 + 2 * T];
   s.w0p = s.pll_bw / P.pll_div;
   s.w0d = s.dll_bw / P.dll_div;
 }
@@ -466,7 +495,7 @@ struct Geo {
   float rem, step, inv_step, ph0, dstep;
 };
 
-template <class S>
+template <bool FDMA = false, class S>
 __device__ __forceinline__ Geo geo_of(const S& s, const Params& P) {
   Geo g;
   g.pos = (int)s.pos;
@@ -475,7 +504,10 @@ __device__ __forceinline__ Geo geo_of(const S& s, const Params& P) {
   g.step = s.code_step;
   g.inv_step = __frcp_rn(s.code_step);
   g.ph0 = s.phase;
-  g.dstep = (TWO_PI * P.inv_fs) * s.dop;
+  if constexpr (FDMA)
+    g.dstep = fdma_step(s, P);
+  else
+    g.dstep = (TWO_PI * P.inv_fs) * s.dop;
   return g;
 }
 
@@ -484,14 +516,20 @@ __device__ __forceinline__ Geo geo_of(const S& s, const Params& P) {
 // phase rem + step * k (replica_staged), with contraction allowed in the
 // wipeoff and the tap products; the two phase ramps stay single-rounded
 // fmaf as the plain version rounds them. With PILOT, accumulator T takes
-// the data code's replica at offset 0 (the data prompt).
-template <int T, bool INTERP, bool PILOT>
+// the data code's replica at offset 0 (the data prompt). With FDMA the
+// carrier phase is reduced mod 2 pi first (fdma_reduce), then
+// sincos_reduced reduces it again to [-pi, pi], as the TPU kernel's
+// floor and its sincos do.
+template <int T, bool INTERP, bool PILOT, bool FDMA = false>
 __device__ __forceinline__ void accumulate_staged(
     float2 x, const float* code, const float* dcode, int code_len,
     const float* offs, float kf, const Geo& g, float* acc_re,
     float* acc_im) {
   float sw, cw;
-  sincos_reduced(fmaf(g.dstep, kf, g.ph0), &sw, &cw);
+  if constexpr (FDMA)
+    sincos_reduced(fdma_reduce(fmaf(g.dstep, kf, g.ph0)), &sw, &cw);
+  else
+    sincos_reduced(fmaf(g.dstep, kf, g.ph0), &sw, &cw);
   const float wr = x.x * cw + x.y * sw;
   const float wi = x.y * cw - x.x * sw;
   const float cph = fmaf(g.step, kf, g.rem);
@@ -633,7 +671,7 @@ __device__ __forceinline__ int ring_produce_period(
 // of this CTA's slice [lo, lo + len) of period `it` (geometry g) to its 2T
 // tap partials (2T + 2 with PILOT, the data prompt last), chunk by chunk as
 // the slots fill; each warp releases a slot when it is done with it.
-template <int T, bool INTERP, bool PILOT>
+template <int T, bool INTERP, bool PILOT, bool FDMA = false>
 __device__ __forceinline__ void ring_consume_period(
     const float2* __restrict__ window, const float2* ring, uint64_t* full,
     uint64_t* empty, const RingShape& R, const float* code,
@@ -650,7 +688,7 @@ __device__ __forceinline__ void ring_consume_period(
     const int j1 = min(len, j0 + R.chunk);
     mbar_wait(&full[s], (gi >> 1) & 1);
     for (int j = j0 + ctid; j < j1; j += nct)
-      accumulate_staged<T, INTERP, PILOT>(src[j - j0], code, dcode,
+      accumulate_staged<T, INTERP, PILOT, FDMA>(src[j - j0], code, dcode,
                                           code_len, offs, (float)(lo + j), g,
                                           acc_re, acc_im);
     __syncwarp();
@@ -681,6 +719,9 @@ constexpr int RING_THREADS = (NCW + 1) * 32;   // + the producer warp
 //   Loop::PILOT                    the pilot mode: the data prompt's tap,
 //                                  and loop.pilot (a Pilot) to stage the
 //                                  data code and secondary tables from
+//   Loop::FDMA                     the FDMA mode: the carrier step and
+//                                  the ramp's reduction (St then carries
+//                                  w_off)
 //   Loop::St                       the loop state (warp 0 of each CTA holds
 //                                  it), with pos, rem, dcode, phase, dop and
 //                                  the geometry fields delta, code_step, n
@@ -704,6 +745,7 @@ cluster_track_kernel(const float2* __restrict__ window,
                      const RingShape R, int ranks, const Loop loop) {
   constexpr int T = Loop::T;
   constexpr bool PILOT = Loop::PILOT;
+  constexpr bool FDMA = Loop::FDMA;
   constexpr int NT = 2 * (T + (PILOT ? 1 : 0));   // sums a period
   namespace cg = cooperative_groups;
   // [2][slotw] ring slots, then the tables (track_smem_bytes)
@@ -745,7 +787,7 @@ cluster_track_kernel(const float2* __restrict__ window,
   if (warp == 0) {
     loop.load(st, sc, pos_in, c, P);
     period_geometry(st, P);
-    if (lane == 0) s_geo = geo_of(st, P);
+    if (lane == 0) s_geo = geo_of<FDMA>(st, P);
   }
   __syncthreads();
 
@@ -765,7 +807,7 @@ cluster_track_kernel(const float2* __restrict__ window,
       float acc_re[NT / 2], acc_im[NT / 2];
 #pragma unroll
       for (int t = 0; t < NT / 2; ++t) acc_re[t] = acc_im[t] = 0.0f;
-      ring_consume_period<T, INTERP, PILOT>(
+      ring_consume_period<T, INTERP, PILOT, FDMA>(
           window, ring, full, empty, R, s_code, s_dcode, P.code_len, offs, g,
           it, lo, len, tid, NCW * 32, lane, acc_re, acc_im);
 #pragma unroll
@@ -798,7 +840,7 @@ cluster_track_kernel(const float2* __restrict__ window,
       loop.close(st, P, taps, (rank == 0 && lane == 0) ? s_row : nullptr,
                  s_sec, s_sec + SEC_MAX);
       period_geometry(st, P);
-      if (lane == 0) s_geo = geo_of(st, P);
+      if (lane == 0) s_geo = geo_of<FDMA>(st, P);
       if (rank == 0) {
         __syncwarp();
         reinterpret_cast<float4*>(

@@ -137,6 +137,7 @@ template <int NT>
 struct SimpleLoop {
   static constexpr int T = NT;
   static constexpr bool PILOT = false;
+  static constexpr bool FDMA = false;
   using St = SimpleState;
   Filter pll, dll;
   // no enabled gating: every channel advances

@@ -44,7 +44,10 @@ from gnss_sdr_tpu_torch.utils.log import get_logger, setup_logging
 
 log = get_logger(__name__)
 
-_BAND_ORDER = ("L1", "L5", "B1")
+# RF chain i feeds the i-th band the plans need, in this order. The JAX
+# package's order stops at B1, so its CLI refuses the GLONASS (G1, G2) and
+# Galileo E5b groups for want of a chain; here they take the next chain.
+_BAND_ORDER = ("L1", "L5", "B1", "G1", "G2", "E5b")
 
 # keys whose features the port does not carry yet (ROADMAP queue item 16)
 _UNPORTED_KEYS = (
@@ -125,7 +128,7 @@ def run_from_config(cfg, max_seconds: float | None = None,
     """Run the full receiver from a ConfigurationInterface; returns status.
 
     Builds one SignalPlan per Channels_XX group; RF chain i feeds the i-th
-    band in L1, L5 order (gnss_block_factory.cc GetChannels grouping +
+    band in _BAND_ORDER (gnss_block_factory.cc GetChannels grouping +
     per-RF-channel sources). ``device`` holds the sample ring and runs the
     engines and the conditioner.
     """

@@ -146,7 +146,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i,         # C, K, n_max
         p, i,            # params (host f32 [16]), num_taps
         i, i, i,         # pll_order, dll_order, interp_code
-        i,               # track_pilot
+        i, i,            # track_pilot, fdma
         p, p, p,         # dcodes (f32 [C, code_len]), sec_p, sec_d
         p,               # sec (host int32 [5]): widths, lengths, lcm
     ]
@@ -159,7 +159,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gnss_track_blocked.restype = i
     lib.gnss_track_blocked_max_clusters.argtypes = [
         i, i, i, i,      # C, code_len, n_max, interp_code
-        i, i,            # num_taps, track_pilot
+        i, i, i,         # num_taps, track_pilot, fdma
         i, i,            # cluster size, slice width
         ctypes.POINTER(ctypes.c_int),   # out: clusters resident at once
     ]
@@ -168,6 +168,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, entry)
         fn.argtypes = [
             i, i, i, i,  # code_len, interp_code, num_taps, track_pilot
+            i,           # fdma
             i,           # slice width (K1) or n_max (K2)
             ctypes.POINTER(ctypes.c_int),   # out: bytes a CTA needs
             ctypes.POINTER(ctypes.c_int),   # out: the card's limit

@@ -11,9 +11,9 @@ is float32 [C, K, 128]. Only the mapping of the loop onto the card
 differs, so K2's plain version is K1's, ``track_blocked_plain``.
 ``tracking/fused.py`` selects K2 when ``GNSS_SDR_TPU_FUSED=perchannel``.
 Modes: K1's: T = 3 or 5 taps, PLL/DLL orders 1-3, FLL assist, the atan2
-flag, extended integration, both replica forms and the pilot mode with its
-data code and secondary tables; FDMA raises ``NotImplementedError``, as for
-K1. A CTA holds a whole period's ring and the tables in shared memory; a
+flag, extended integration, both replica forms, the pilot mode with its
+data code and secondary tables, and FDMA (the carrier offset in scalar slot
+``S_ACC0 + 2T``). A CTA holds a whole period's ring and the tables in shared memory; a
 shape past the card's limit raises ``ValueError``.
 
 **K4**, the simple fused tracker, is the counterpart of

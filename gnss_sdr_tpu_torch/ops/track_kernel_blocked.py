@@ -37,11 +37,20 @@ spread of positions applies. Lane ``LANE_POS`` still carries the position
 as float32, as in the TPU kernel; the fused engine takes positions from the
 exact per-period counts in lane ``LANE_N`` instead.
 
+FDMA mode (``fdma``, the TPU kernel's :308, :386-399 and :597-600): each
+channel's carrier offset rides in scalar slot ``S_ACC0 + 2T`` as w_off,
+rad/sample reduced to [-pi, pi) on the host (``tracking/fused.py``). The
+per-sample carrier step is ``(2 pi / fs) * doppler + w_off``, the phase
+``ph0 + step * k`` is reduced as ``ph - 2 pi floor(ph / 2 pi)`` before the
+sine and cosine (the ramp reaches about n_max * pi rad, where a float32
+ulp is ~1e-3 rad), and the NCO advances by ``step * n``. XLA on the CPU
+contracts each of these sums with its product into one fused multiply-add,
+so the plain version and the kernels round each once (``_fma``).
+
 Modes: T = 3 or 5 taps, PLL/DLL orders 1-3, FLL assist, the atan2 flag,
-extended integration, both replica forms and the pilot mode. FDMA raises
-``NotImplementedError`` (ROADMAP queue 1 item 10). A shape whose CTA needs
-more shared memory than the card has (the ring, the code tables and, in
-pilot mode, the secondary rows) raises ``ValueError``.
+extended integration, both replica forms, the pilot mode and FDMA. A
+shape whose CTA needs more shared memory than the card has (the ring, the
+code tables and, in pilot mode, the secondary rows) raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -106,7 +115,6 @@ from gnss_sdr_tpu_torch.ops.slots import (
 )
 
 SEC_MAX = 128          # secondary chips a table row may hold
-FDMA_ITEM = 10         # ROADMAP queue 1 item that ports the FDMA mode
 
 
 @dataclass(frozen=True)
@@ -130,6 +138,7 @@ class BlockedSpec:
     sec_len_pilot: int = 1
     sec_len_data: int = 1
     sec_lcm: int = 1
+    fdma: bool = False
 
     @property
     def num_taps(self) -> int:
@@ -164,10 +173,6 @@ def make_blocked_spec(n_periods: int, n_max: int, code_len: int,
                       sec_len_pilot: int = 1, sec_len_data: int = 1,
                       sec_lcm: int = 1, fdma: bool = False) -> BlockedSpec:
     offs = tuple(float(o) for o in np.asarray(tap_offsets, np.float32))
-    if fdma:
-        raise NotImplementedError(
-            "fused tracker: FDMA carrier offsets (ROADMAP queue item "
-            f"{FDMA_ITEM})")
     if len(offs) not in (3, 5):
         raise ValueError(f"fused tracker: 3 or 5 taps, got {len(offs)}")
     for order in (pll_order, dll_order):
@@ -182,7 +187,8 @@ def make_blocked_spec(n_periods: int, n_max: int, code_len: int,
     return BlockedSpec(int(n_periods), int(n_max), int(code_len), offs,
                        float(fs), float(code_rate_cps), float(carrier_freq_hz),
                        int(pll_order), int(dll_order), float(fll_bw_hz),
-                       bool(interp_code), bool(track_pilot), *sec)
+                       bool(interp_code), bool(track_pilot), *sec,
+                       bool(fdma))
 
 
 def check_layout(window, codes, scalars, code_len: int, num_scalars: int,
@@ -297,6 +303,19 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).float()
 
 
+TWO_PI = np.float32(2.0 * np.pi)
+INV_TWO_PI = np.float32(1.0 / (2.0 * np.pi))
+
+
+def reduce_phase(ph: torch.Tensor) -> torch.Tensor:
+    """The FDMA ramp's ``ph - 2 pi floor(ph / 2 pi)`` as the TPU kernel
+    rounds it (:398-399 under XLA's contraction): the quotient by a
+    product with float32(1 / 2 pi), the difference in one fused
+    multiply-add."""
+    q = torch.floor(ph * torch.tensor(INV_TWO_PI, device=ph.device))
+    return _fma(torch.tensor(-TWO_PI, device=ph.device), q, ph)
+
+
 def period_geometry(rem, dcode, inv_fs, nominal_step, c0, spcf, n_max: int):
     """The period length from the code NCO: round, then correct a negative
     remnant (``csrc/track_loop.cuh::period_geometry``). Takes and returns
@@ -312,12 +331,15 @@ def period_geometry(rem, dcode, inv_fs, nominal_step, c0, spcf, n_max: int):
 
 
 def tap_sums(window, codes, posi, n, rem, code_step, phase0, dstep, offs,
-             interp_code: bool, n_max: int, dcodes=None) -> list:
+             interp_code: bool, n_max: int, dcodes=None,
+             fdma: bool = False) -> list:
     """One period's tap sums [re_0, im_0, re_1, ...] per channel
     (``csrc/track_loop.cuh::accumulate_staged``): the samples at
     ``posi + k`` for k < n (zeros outside the window), wiped off at the
     carrier phase ``phase0 + dstep * k``, times the soft replica at the
     code phase ``rem + code_step * k + offs[t]``; both ramps rounded once.
+    With ``fdma`` the carrier phase is first reduced mod 2 pi
+    (``reduce_phase``).
     The replica's ramp weight multiplies by ``1 / code_step``, computed once
     a period, as the kernels do, where the TPU kernels divide by the step
     per tap. With ``dcodes`` two more sums follow: the data code's replica
@@ -338,6 +360,8 @@ def tap_sums(window, codes, posi, n, rem, code_step, phase0, dstep, offs,
     xr = torch.where(inside, x.real, zero)
     xi = torch.where(inside, x.imag, zero)
     ph = _fma(dstep[:, None], kf[None, :], phase0[:, None])
+    if fdma:
+        ph = reduce_phase(ph)
     sw, cw = torch.sin(ph), torch.cos(ph)
     wr = (xr * cw + xi * sw) * mask
     wi = (xi * cw - xr * sw) * mask
@@ -427,6 +451,7 @@ def track_blocked_plain(window, codes, scalars, pos, spec: BlockedSpec,
     prev_re, prev_im = col(S_PREV_RE), col(S_PREV_IM)
     accd_re, accd_im, accd_cnt = col(S_ACCD_RE), col(S_ACCD_IM), col(S_ACCD_CNT)
     acc = [col(S_ACC0 + j) for j in range(2 * t)]
+    w_off = col(S_ACC0 + 2 * t) if spec.fdma else None
 
     out = torch.zeros((c, spec.n_periods, LANES), dtype=f32, device=dev)
 
@@ -437,9 +462,12 @@ def track_blocked_plain(window, codes, scalars, pos, spec: BlockedSpec,
         delta, code_step, n = period_geometry(rem, dcode, inv_fs,
                                               nominal_step, c0, spcf, n_max)
         ni = n.to(torch.int64)
+        # the carrier step in force during the period (FDMA: plus w_off)
+        dstep = (_fma(dphase_hz, doppler, w_off) if spec.fdma
+                 else dphase_hz * doppler)
         taps = tap_sums(window, codes, posi, n, rem, code_step, phase0,
-                        dphase_hz * doppler, offs, spec.interp_code, n_max,
-                        dcodes if spec.track_pilot else None)
+                        dstep, offs, spec.interp_code, n_max,
+                        dcodes if spec.track_pilot else None, spec.fdma)
 
         # ---- coherent accumulation (secondary wipeoff in pilot mode) ----
         if spec.track_pilot:
@@ -528,8 +556,13 @@ def track_blocked_plain(window, codes, scalars, pos, spec: BlockedSpec,
                                 dcode)
 
         # ---- NCO advance over the consumed period -----------------------
-        phase_adv = phase0 + dphase_hz * doppler * n
-        phase_adv = phase_adv - two_pi * torch.floor(phase_adv / two_pi)
+        if spec.fdma:
+            phase_adv = _fma(dstep, n, phase0)
+            phase_adv = _fma(-two_pi, torch.floor(phase_adv / two_pi),
+                             phase_adv)
+        else:
+            phase_adv = phase0 + dstep * n
+            phase_adv = phase_adv - two_pi * torch.floor(phase_adv / two_pi)
         rem_adv = torch.maximum(
             rem + ((n - spcf) * code_step + c0 + spcf * delta), zero)
         posi = torch.where(eng, posi + ni, posi)
@@ -597,7 +630,7 @@ def launch(window, codes, scalars, pos, spec: BlockedSpec,
     of the chosen shape needs more shared memory than the card has."""
     c = scalars.shape[0]
     mode = (spec.code_len, spec.n_max, int(spec.interp_code), spec.num_taps,
-            int(spec.track_pilot))
+            int(spec.track_pilot), int(spec.fdma))
     r, width = launch_shape(window.device, c, spec.n_max,
                             "gnss_track_blocked_max_clusters", c, *mode)
     check_smem(window.device, "gnss_track_blocked_smem", spec, width)
@@ -646,7 +679,7 @@ def check_smem(device: torch.device, entry: str, spec: BlockedSpec,
     the secondary rows."""
     need, limit = smem_need(entry, device, spec.code_len,
                             int(spec.interp_code), spec.num_taps,
-                            int(spec.track_pilot), extent)
+                            int(spec.track_pilot), int(spec.fdma), extent)
     if need > limit:
         raise ValueError(
             f"{entry}: a CTA needs {need} B of shared memory for "
@@ -695,7 +728,8 @@ def launch_entry(entry: str, window, codes, scalars, pos,
                 pos.data_ptr(), out.data_ptr(), c, spec.n_periods,
                 spec.n_max, hp, spec.num_taps, spec.pll_order,
                 spec.dll_order, int(spec.interp_code),
-                int(spec.track_pilot), *tables, sec, *shape, stream)
+                int(spec.track_pilot), int(spec.fdma), *tables, sec, *shape,
+                stream)
     _build.check(rc, entry)
 
 

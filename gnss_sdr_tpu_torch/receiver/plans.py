@@ -1,9 +1,11 @@
 """Signal plans: everything the receiver needs to run one signal type.
 
 Counterpart of ``gnss_sdr_tpu/receiver/plans.py`` (``SignalPlan``,
-``gps_l1ca_plan``, ``galileo_e1b_plan``, ``galileo_e1bc_plan``,
-``gps_l5_plan`` and ``galileo_e5a_plan``; the other signals are not ported
-yet, ROADMAP queue item 10). A plan bundles
+``gps_l1ca_plan``, ``qzss_l1_ca_plan``, ``galileo_e1b_plan``,
+``galileo_e1bc_plan``, ``gps_l5_plan``, ``qzss_l5_plan``,
+``galileo_e5a_plan``, ``galileo_e5b_plan``, ``glonass_l1_ca_plan`` and
+``glonass_l2_ca_plan``; BeiDou, SBAS, L2C and E6B are not ported yet,
+ROADMAP queue item 10). A plan bundles
 the per-signal pieces the reference spreads across an adapter triple
 (Acq/Trk/Tlm) plus the code tables: the engines are built per plan, and
 the channels of a plan are one batch on the device. BOC signals use
@@ -14,7 +16,7 @@ converts them to seconds for the observables.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Callable
 
 import numpy as np
@@ -33,19 +35,37 @@ from gnss_sdr_tpu_torch.codes.galileo_e5a import (
     galileo_e5ai_code_table,
     galileo_e5aq_code_table,
 )
-from gnss_sdr_tpu_torch.codes.gps_l1_ca import gps_l1_ca_code_table
+from gnss_sdr_tpu_torch.codes.galileo_e5b import (
+    e5bi_secondary_levels,
+    e5bq_secondary_levels,
+    galileo_e5bi_code_table,
+    galileo_e5bq_code_table,
+)
+from gnss_sdr_tpu_torch.codes.glonass_ca import (
+    glonass_ca_code_table,
+    slot_freq_offsets_hz,
+)
+from gnss_sdr_tpu_torch.codes.gps_l1_ca import (
+    gps_l1_ca_code,
+    gps_l1_ca_code_table,
+)
 from gnss_sdr_tpu_torch.codes.gps_l5 import (
     gps_l5i_code_table,
     gps_l5q_code_table,
     nh10_levels,
     nh20_levels,
+    qzss_l5i_code,
+    qzss_l5q_code,
 )
 from gnss_sdr_tpu_torch.constants import galileo_e1 as GAL
 from gnss_sdr_tpu_torch.constants import galileo_e5a as E5A
+from gnss_sdr_tpu_torch.constants import galileo_e5b as E5B
+from gnss_sdr_tpu_torch.constants import glonass_l1 as GLO
 from gnss_sdr_tpu_torch.constants import gps_l1_ca as GPS
 from gnss_sdr_tpu_torch.constants import gps_l5 as L5
 from gnss_sdr_tpu_torch.telemetry.cnav import CnavDecoder
 from gnss_sdr_tpu_torch.telemetry.fnav import FnavDecoder
+from gnss_sdr_tpu_torch.telemetry.gnav import GnavDecoder
 from gnss_sdr_tpu_torch.telemetry.inav import InavDecoder
 from gnss_sdr_tpu_torch.telemetry.lnav import LnavDecoder
 from gnss_sdr_tpu_torch.tracking import DllPllConf
@@ -78,7 +98,9 @@ class SignalPlan:
     # per-block binary dumps (not carried by the port yet)
     dump_filename: str | None = None
     acq_dump_filename: str | None = None
-    # FDMA per-PRN-row carrier offsets (not carried by the port yet)
+    # FDMA (GLONASS): per-PRN-row carrier offsets from band center; the
+    # acquisition grid and tracking NCO add offset(prn), and the channel's
+    # true carrier is carrier_freq_hz + offset(prn)
     freq_offset_table: np.ndarray | None = None
     # acquisition engine variant; the port carries "pcps"
     acq_engine: str = "pcps"
@@ -500,3 +522,295 @@ def galileo_e5a_plan(
         sec_data_levels=e5ai_secondary_levels(),
         acq_code_table=data_table,
     )
+
+
+def qzss_l1_ca_plan(
+    fs: float,
+    num_channels: int = 4,
+    doppler_max_hz: float = 5000.0,
+    doppler_step_hz: float = 250.0,
+    acq_dwells: int = 2,
+    acq_pfa: float = 1e-3,
+    pll_bw_hz: float = 35.0,
+    dll_bw_hz: float = 2.0,
+    pll_bw_narrow_hz: float = 7.5,
+    dll_bw_narrow_hz: float = 0.75,
+    enable_fll_pull_in: bool = True,
+    fll_bw_hz: float = 4.0,
+    pull_in_time_s: float = 0.25,
+    extend_correlation_symbols: int = 20,
+    search_prns: tuple = tuple(range(193, 203)),
+) -> SignalPlan:
+    """QZSS L1 C/A (reference adapters QZSS_L1_PCPS_Acquisition /
+    QZSS_L1_DLL_PLL_Tracking; codes qzss_signal_replica.cc): the GPS plan
+    with the QZSS PRN rows (193..202), LNAV-compatible."""
+    table = np.stack(
+        [gps_l1_ca_code(p) for p in range(193, 203)]
+    ).astype(np.float32)
+    base = gps_l1ca_plan(
+        fs=fs, num_channels=num_channels, doppler_max_hz=doppler_max_hz,
+        doppler_step_hz=doppler_step_hz, acq_dwells=acq_dwells,
+        acq_pfa=acq_pfa, pll_bw_hz=pll_bw_hz, dll_bw_hz=dll_bw_hz,
+        pll_bw_narrow_hz=pll_bw_narrow_hz,
+        dll_bw_narrow_hz=dll_bw_narrow_hz,
+        enable_fll_pull_in=enable_fll_pull_in, fll_bw_hz=fll_bw_hz,
+        pull_in_time_s=pull_in_time_s,
+        extend_correlation_symbols=extend_correlation_symbols,
+        search_prns=search_prns,
+    )
+    base.name = "J1"
+    base.system = "J"
+    base.code_table = table
+    base.prn_row = lambda prn: prn - 193
+    return base
+
+
+def qzss_l5_plan(
+    fs: float,
+    num_channels: int = 4,
+    doppler_max_hz: float = 4000.0,
+    doppler_step_hz: float = 250.0,
+    acq_dwells: int = 2,
+    acq_pfa: float = 1e-3,
+    pll_bw_hz: float = 30.0,
+    dll_bw_hz: float = 2.0,
+    pll_bw_narrow_hz: float = 5.0,
+    dll_bw_narrow_hz: float = 0.5,
+    enable_fll_pull_in: bool = True,
+    fll_bw_hz: float = 4.0,
+    pull_in_time_s: float = 0.25,
+    extend_correlation_symbols: int = 20,
+    search_prns: tuple = tuple(range(193, 203)),
+    steps_per_block: int | None = None,
+) -> SignalPlan:
+    """QZSS L5 (PRN 193-202): GPS L5's signal structure (NH20 pilot, NH10
+    x CNAV data) with the QZSS XB-initial-state codes (reference
+    qzss_l5_signal_replica.cc, QZSS_L5i_PCPS_Acquisition /
+    QZSS_L5i_DLL_PLL_Tracking adapters)."""
+    prns = list(search_prns)
+    pilot_table = np.stack([qzss_l5q_code(p) for p in prns]).astype(
+        np.float32)
+    data_table = np.stack([qzss_l5i_code(p) for p in prns]).astype(
+        np.float32)
+    return SignalPlan(
+        name="J5",
+        system="J",
+        band="L5",
+        num_channels=num_channels,
+        code_table=pilot_table,
+        table_rate_cps=L5.CODE_RATE_CPS,
+        carrier_freq_hz=L5.FREQ_HZ,
+        code_period_s=L5.CODE_PERIOD_S,
+        acq_conf=AcqConfig(
+            fs=fs,
+            code_length_chips=L5.CODE_LENGTH_CHIPS,
+            code_rate_cps=L5.CODE_RATE_CPS,
+            doppler_max_hz=doppler_max_hz,
+            doppler_step_hz=doppler_step_hz,
+            max_dwells=acq_dwells,
+            bit_transition_flag=True,
+            pfa=acq_pfa,
+        ),
+        trk_conf=DllPllConf(
+            fs=fs,
+            code_length_chips=L5.CODE_LENGTH_CHIPS,
+            code_rate_cps=L5.CODE_RATE_CPS,
+            carrier_freq_hz=L5.FREQ_HZ,
+            pll_bw_hz=pll_bw_hz,
+            dll_bw_hz=dll_bw_hz,
+            pll_bw_narrow_hz=pll_bw_narrow_hz,
+            dll_bw_narrow_hz=dll_bw_narrow_hz,
+            enable_fll_pull_in=enable_fll_pull_in,
+            fll_bw_hz=fll_bw_hz,
+            pull_in_time_s=pull_in_time_s,
+            extend_correlation_symbols=extend_correlation_symbols,
+            codes_per_bit=L5.CODES_PER_SYMBOL,
+            track_pilot=True,
+            sec_len_pilot=20,
+            sec_len_data=10,
+            data_on_quadrature=True,
+            steps_per_block=steps_per_block or 20,
+            max_channels=num_channels,
+        ),
+        make_decoder=CnavDecoder,
+        search_prns=tuple(prns),
+        prn_row=lambda prn: prn - 193,
+        data_code_table=data_table,
+        sec_pilot_table=np.tile(nh20_levels(), (pilot_table.shape[0], 1)),
+        sec_data_levels=nh10_levels(),
+        acq_code_table=data_table,
+    )
+
+
+def galileo_e5b_plan(
+    fs: float,
+    num_channels: int = 8,
+    doppler_max_hz: float = 4000.0,
+    doppler_step_hz: float = 250.0,
+    acq_dwells: int = 2,
+    acq_pfa: float = 1e-3,
+    pll_bw_hz: float = 20.0,
+    dll_bw_hz: float = 2.0,
+    pll_bw_narrow_hz: float = 5.0,
+    dll_bw_narrow_hz: float = 0.5,
+    enable_fll_pull_in: bool = True,
+    fll_bw_hz: float = 4.0,
+    pull_in_time_s: float = 0.25,
+    extend_correlation_symbols: int = 4,
+    search_prns: tuple = tuple(range(1, 37)),
+    steps_per_block: int | None = None,
+) -> SignalPlan:
+    """Galileo E5b: pilot (Q, CS100) tracking with data (I, CS4 x I/NAV)
+    symbol extraction (reference adapters Galileo_E5b_PCPS_Acquisition /
+    Galileo_E5b_DLL_PLL_Tracking / Galileo_E5b_Telemetry_Decoder; codes
+    galileo_e5_signal_replica.cc). E5b-I carries E1-B's I/NAV structure at
+    250 sym/s, so the I/NAV decoder takes its data symbols; the CS4 data
+    secondary spans one 4 ms symbol."""
+    pilot_table = galileo_e5bq_code_table()
+    data_table = galileo_e5bi_code_table()
+    sec_pilot = np.stack([
+        e5bq_secondary_levels(p + 1) for p in range(pilot_table.shape[0])
+    ])
+    extend = max(extend_correlation_symbols, 1) * E5B.CODES_PER_SYMBOL
+    return SignalPlan(
+        name="7X",
+        system="E",
+        band="E5b",
+        num_channels=num_channels,
+        code_table=pilot_table,
+        table_rate_cps=E5B.CODE_RATE_CPS,
+        carrier_freq_hz=E5B.FREQ_HZ,
+        code_period_s=E5B.CODE_PERIOD_S,
+        acq_conf=AcqConfig(
+            fs=fs,
+            code_length_chips=E5B.CODE_LENGTH_CHIPS,
+            code_rate_cps=E5B.CODE_RATE_CPS,
+            doppler_max_hz=doppler_max_hz,
+            doppler_step_hz=doppler_step_hz,
+            max_dwells=acq_dwells,
+            bit_transition_flag=True,
+            pfa=acq_pfa,
+        ),
+        trk_conf=DllPllConf(
+            fs=fs,
+            code_length_chips=E5B.CODE_LENGTH_CHIPS,
+            code_rate_cps=E5B.CODE_RATE_CPS,
+            carrier_freq_hz=E5B.FREQ_HZ,
+            pll_bw_hz=pll_bw_hz,
+            dll_bw_hz=dll_bw_hz,
+            pll_bw_narrow_hz=pll_bw_narrow_hz,
+            dll_bw_narrow_hz=dll_bw_narrow_hz,
+            enable_fll_pull_in=enable_fll_pull_in,
+            fll_bw_hz=fll_bw_hz,
+            pull_in_time_s=pull_in_time_s,
+            extend_correlation_symbols=extend,
+            codes_per_bit=E5B.CODES_PER_SYMBOL,
+            track_pilot=True,
+            sec_len_pilot=100,
+            sec_len_data=4,
+            data_on_quadrature=True,
+            steps_per_block=steps_per_block or 20,
+            max_channels=num_channels,
+        ),
+        make_decoder=InavDecoder,
+        search_prns=search_prns,
+        data_code_table=data_table,
+        sec_pilot_table=sec_pilot,
+        sec_data_levels=e5bi_secondary_levels(),
+        acq_code_table=data_table,
+    )
+
+
+def glonass_l1_ca_plan(
+    fs: float,
+    num_channels: int = 6,
+    doppler_max_hz: float = 5000.0,
+    doppler_step_hz: float = 250.0,
+    acq_dwells: int = 2,
+    acq_pfa: float = 1e-3,
+    pll_bw_hz: float = 30.0,
+    dll_bw_hz: float = 2.0,
+    pll_bw_narrow_hz: float = 6.0,
+    dll_bw_narrow_hz: float = 0.75,
+    enable_fll_pull_in: bool = True,
+    fll_bw_hz: float = 4.0,
+    pull_in_time_s: float = 0.25,
+    search_prns: tuple = tuple(range(1, 25)),
+    steps_per_block: int | None = None,
+) -> SignalPlan:
+    """GLONASS L1 C/A (FDMA; reference adapters
+    GLONASS_L1_CA_PCPS_Acquisition / GLONASS_L1_CA_DLL_PLL_Tracking /
+    GLONASS_L1_CA_Telemetry_Decoder, code glonass_l1_signal_replica.cc).
+
+    "PRN" = orbital slot 1..24; all slots share one 511-chip code and are
+    separated by the FDMA carrier offset k(slot) * 562.5 kHz, carried in
+    the plan's freq_offset_table and in TrackingState.carrier_offset
+    (conf.fdma). Telemetry: GNAV at 10 ms symbols (bit sync at
+    codes_per_bit=10, then 10-period extended integration)."""
+    return SignalPlan(
+        name="1G",
+        system="R",
+        band="G1",
+        num_channels=num_channels,
+        code_table=glonass_ca_code_table(),
+        table_rate_cps=GLO.CODE_RATE_CPS,
+        carrier_freq_hz=GLO.FREQ_HZ,
+        code_period_s=GLO.CODE_PERIOD_S,
+        acq_conf=AcqConfig(
+            fs=fs,
+            code_length_chips=GLO.CODE_LENGTH_CHIPS,
+            code_rate_cps=GLO.CODE_RATE_CPS,
+            doppler_max_hz=doppler_max_hz,
+            doppler_step_hz=doppler_step_hz,
+            max_dwells=acq_dwells,
+            pfa=acq_pfa,
+        ),
+        trk_conf=DllPllConf(
+            fs=fs,
+            code_length_chips=GLO.CODE_LENGTH_CHIPS,
+            code_rate_cps=GLO.CODE_RATE_CPS,
+            carrier_freq_hz=GLO.FREQ_HZ,
+            fdma=True,
+            pll_bw_hz=pll_bw_hz,
+            dll_bw_hz=dll_bw_hz,
+            pll_bw_narrow_hz=pll_bw_narrow_hz,
+            dll_bw_narrow_hz=dll_bw_narrow_hz,
+            enable_fll_pull_in=enable_fll_pull_in,
+            fll_bw_hz=fll_bw_hz,
+            pull_in_time_s=pull_in_time_s,
+            extend_correlation_symbols=GLO.CODES_PER_SYMBOL,
+            codes_per_bit=GLO.CODES_PER_SYMBOL,
+            steps_per_block=steps_per_block or 20,
+            max_channels=num_channels,
+        ),
+        make_decoder=GnavDecoder,
+        search_prns=search_prns,
+        freq_offset_table=slot_freq_offsets_hz(),
+    )
+
+
+def glonass_l2_ca_plan(
+    fs: float,
+    num_channels: int = 6,
+    doppler_max_hz: float = 4000.0,
+    doppler_step_hz: float = 250.0,
+    acq_dwells: int = 2,
+    acq_pfa: float = 1e-3,
+    search_prns: tuple = tuple(range(1, 25)),
+    **loop_kwargs,
+) -> SignalPlan:
+    """GLONASS L2 C/A (reference GLONASS_L2_CA_* adapters): L1's code and
+    GNAV message at 1246 MHz + k * 437.5 kHz."""
+    plan = glonass_l1_ca_plan(
+        fs=fs, num_channels=num_channels, doppler_max_hz=doppler_max_hz,
+        doppler_step_hz=doppler_step_hz, acq_dwells=acq_dwells,
+        acq_pfa=acq_pfa, search_prns=search_prns, **loop_kwargs,
+    )
+    plan.name = "2G"
+    plan.band = "G2"
+    plan.carrier_freq_hz = 1.246e9
+    plan.freq_offset_table = np.array(
+        [GLO.SLOT_TO_K[s] * 437500.0 for s in range(1, 25)], dtype=np.float64
+    )
+    plan.trk_conf = replace(plan.trk_conf, carrier_freq_hz=1.246e9)
+    return plan

@@ -2,8 +2,11 @@
 -> PVT.
 
 Counterpart of ``gnss_sdr_tpu/receiver/receiver.py``, for GPS L1 C/A and
-L5, Galileo E1 (E1-B data-only, and E1-B+C with pilot tracking) and
-Galileo E5a, with one sample stream per band. Host-side
+L5, QZSS L1 C/A and L5, Galileo E1 (E1-B data-only, and E1-B+C with pilot
+tracking), E5a and E5b, and GLONASS L1 and L2 C/A (FDMA: one detection per
+frequency channel, the slot offset in the tracker's NCO, the GNAV slot
+number re-keying a channel that acquired an antipodal twin), with one
+sample stream per band. Host-side
 orchestration plays the roles of the reference's
 ControlThread event loop and GNSSFlowgraph channel management around the
 batched device engines:
@@ -12,7 +15,7 @@ batched device engines:
   engine and one batched Tracker (all its channels in one device batch);
   a satellite already tracked on another carrier is searched by a narrow
   assisted engine around its projected Doppler;
-- telemetry: per-channel decoders (LNAV, I/NAV, CNAV, F/NAV) fed with
+- telemetry: per-channel decoders (LNAV, I/NAV, CNAV, F/NAV, GNAV) fed with
   prompt signs, on pilot plans with the data component's symbols once the
   secondary code is locked;
 - observables: one shared ObservablesEngine anchored by telemetry TOWs;
@@ -329,10 +332,23 @@ class Receiver:
 
         order = np.argsort([-r[2] for r in results])
         started = {}
+        seen_offsets: set[float] = set()
         for idx in order:
             prn, det, stat, dop_hz, delay_sp = results[idx]
             if not det:
                 continue
+            fdma_off = plan.carrier_offset_hz(prn)
+            if plan.freq_offset_table is not None:
+                # FDMA: antipodal slots share code AND carrier, so one
+                # detection per frequency channel; the GNAV slot number
+                # re-keys the channel if the twin guess was wrong
+                # (_handle_block)
+                if fdma_off in seen_offsets or any(
+                    plan.carrier_offset_hz(p) == fdma_off
+                    for p in g.channel_prn if p
+                ):
+                    continue
+                seen_offsets.add(fdma_off)
             ch = g.idle_channel()
             if ch is None:
                 break
@@ -347,6 +363,7 @@ class Receiver:
                 acq_doppler_hz=dop_hz,
                 acq_samplestamp=start,
                 current_abs_sample=max(start, ds.base),
+                carrier_offset_hz=fdma_off,
             )
             g.channel_prn[ch] = prn
             g.decoders[prn] = plan.make_decoder(prn)
@@ -357,8 +374,9 @@ class Receiver:
             )
             self.obs.configure_channel(
                 g.offset + ch, plan.code_period_s, plan.table_rate_cps,
-                plan.carrier_freq_hz, plan.system,
+                plan.carrier_freq_hz + fdma_off, plan.system,
                 fs=plan.fs, signal=plan.name,
+                carrier_offset_hz=fdma_off,
             )
             started[(plan.system, prn)] = (dop_hz, delay_sp)
         return started
@@ -544,6 +562,28 @@ class Receiver:
                       else dec.push_bits(signs, stamps))
             for ev in events:
                 self.status.subframes += 1
+                # FDMA slot identity: antipodal satellites share the
+                # frequency channel; the decoded GNAV slot number (string
+                # 4 'n') is the authority (reference
+                # flag_update_slot_number). Re-key the channel if the
+                # acquisition-time guess picked the twin.
+                true_prn = prn
+                if plan.system == "R" and ev.get("ephemeris_complete"):
+                    true_prn = getattr(
+                        g.decoders[prn].eph, "slot", prn) or prn
+                if true_prn != prn:
+                    if true_prn in g.channel_prn:
+                        log.info("R%02d: twin slot already tracked, "
+                                 "dropping channel %d", true_prn, ch)
+                        g.tracker.stop_channel(ch)
+                        self.obs.deanchor_keep_signal(gch)
+                        del g.decoders[prn]
+                        break
+                    log.info("R%02d -> R%02d: GNAV slot re-key", prn,
+                             true_prn)
+                    g.decoders[true_prn] = g.decoders.pop(prn)
+                    g.channel_prn[ch] = true_prn
+                    prn = true_prn
                 rem = rem_map.get(int(ev["sample_stamp"]), 0.0)
                 self.obs.anchor(
                     gch, prn, ev["tow_s"], ev["sample_stamp"],

@@ -6,12 +6,14 @@
 Takes two SASS dumps written by ``python -m
 gnss_sdr_tpu_torch.tools.sass_report --out DIR`` (one from each
 checkout) and, for every instantiation of K1 (``BlockedLoop``), K4
-(``SimpleLoop``) and K2 (``track_full_kernel``) at T = 3 or 5 without the
-pilot mode, in both replica forms, prints one JSON line: whether the
-instruction text is the same instruction for instruction (addresses
-dropped), the instruction counts, and where the counts differ, the opcodes
-whose counts do. Templates named before and after the pilot mode existed
-(``BlockedLoop<3>`` and ``BlockedLoop<3, false>``) are matched.
+(``SimpleLoop``) and K2 (``track_full_kernel``) at T = 3 or 5, with and
+without the pilot mode, without FDMA, in both replica forms, prints one
+JSON line: whether the instruction text is the same instruction for
+instruction (addresses dropped), the instruction counts, and where the
+counts differ, the opcodes whose counts do. Templates named before and
+after the pilot mode and FDMA existed (``BlockedLoop<3>``,
+``BlockedLoop<3, false>`` and ``BlockedLoop<3, false, false>``) are
+matched; the FDMA instantiations (new in the second dump) are not.
 """
 
 from __future__ import annotations
@@ -24,9 +26,13 @@ from pathlib import Path
 
 from gnss_sdr_tpu_torch.tools.sass_report import split_functions
 
+# (kernel, T, pilot, interp) and (kernel, T, interp, pilot): the pilot
+# flag is absent from the oldest names, FDMA (false) from the older ones
 _KERNELS = (
-    re.compile(r"(BlockedLoop|SimpleLoop)ILi(\d)E(?:Lb0E)?EELb([01])E"),
-    re.compile(r"(track_full)_kernelILi(\d)ELb([01])E(?:Lb0E)?E"),
+    (re.compile(r"(BlockedLoop|SimpleLoop)ILi(\d)E(?:Lb([01])E)?(?:Lb0E)?"
+                r"EELb([01])E"), (0, 1, 3, 2)),
+    (re.compile(r"(track_full)_kernelILi(\d)ELb([01])E(?:Lb([01])E)?"
+                r"(?:Lb0E)?E"), (0, 1, 2, 3)),
 )
 
 
@@ -48,10 +54,13 @@ def opcodes(instrs):
 def gps_kernels(path):
     found = {}
     for name, lines in split_functions(Path(path).read_text()).items():
-        for pat in _KERNELS:
+        for pat, order in _KERNELS:
             m = pat.search(name)
             if m:
-                found[m.groups()] = instructions(lines)
+                g = m.groups()
+                kind, taps, interp, pilot = (g[i] for i in order)
+                found[(kind, taps, interp, pilot or "0")] = instructions(
+                    lines)
     return found
 
 
@@ -62,6 +71,7 @@ def main(a_path, b_path):
         ca, cb = opcodes(ia), opcodes(ib)
         print(json.dumps(dict(
             kernel=key[0], taps=int(key[1]), interp=key[2] == "1",
+            pilot=key[3] == "1",
             same_text=ia == ib, instructions=[len(ia), len(ib)],
             opcodes_differing={op: [ca[op], cb[op]] for op in ca | cb
                                if ca[op] != cb[op]})))

@@ -26,9 +26,13 @@ Modes: CDMA, 3 or 5 taps, interpolated or nearest-chip replica, PLL/DLL
 orders 1-3, FLL assist, extended integration, and pilot/secondary tracking
 (the taps correlate the pilot code, K3's data prompt the data code; once
 the host engages the secondary, the pilot taps and the data prompt are
-wiped by their secondary chips at the channel's secondary index). FDMA
-(ROADMAP queue item 10) and the Kalman mode (item 12) raise
-``NotImplementedError``.
+wiped by their secondary chips at the channel's secondary index), and
+FDMA (GLONASS): the per-channel slot offset ``carrier_offset`` rides on
+the Doppler. As in the JAX engine (which keeps FDMA off its Pallas
+correlator), the wipeoff phase is computed per sample in float64, reduced
+mod 2 pi, cast to float32 and applied to the samples in torch; K3 then
+runs with a zero phase and step, which leaves each sample as it is. The
+Kalman mode (ROADMAP queue item 12) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -163,14 +167,26 @@ def tap_offsets_chips(conf: DllPllConf) -> np.ndarray:
 
 
 def check_supported(conf: DllPllConf) -> None:
-    """Raise for the modes this engine does not carry, naming the ROADMAP
-    queue item that ports each."""
-    for flag, what in ((conf.fdma, "FDMA carrier offsets (ROADMAP queue "
-                        "item 10)"),
-                       (conf.kf, "the Kalman tracking mode (ROADMAP queue "
-                        "item 12)")):
-        if flag:
-            raise NotImplementedError(f"tracking: {what}")
+    """Raise for the mode this engine does not carry, naming the ROADMAP
+    queue item that ports it."""
+    if conf.kf:
+        raise NotImplementedError(
+            "tracking: the Kalman tracking mode (ROADMAP queue item 12)")
+
+
+def fdma_wipe(x: torch.Tensor, st: TrackingState, fs: float) -> torch.Tensor:
+    """The samples [C, N] wiped off at each channel's FDMA carrier: the
+    phase ``mod(carrier_phase, 2 pi) + (2 pi / fs) * (carrier_offset +
+    doppler) * k`` in float64, reduced mod 2 pi and cast to float32 before
+    the sine and cosine (at a slot offset of several MHz the phase sweeps
+    ~1e4 rad a period, far past float32's absolute precision); the JAX
+    engine's :269-283."""
+    k64 = torch.arange(x.shape[1], dtype=torch.float64, device=x.device)
+    freq = st.carrier_offset + st.carrier_doppler.to(torch.float64)
+    ph64 = (torch.remainder(st.carrier_phase, 2.0 * np.pi)[:, None]
+            + (2.0 * np.pi / fs) * freq[:, None] * k64[None, :])
+    ph = torch.remainder(ph64, 2.0 * np.pi).to(torch.float32)
+    return x * torch.complex(torch.cos(ph), -torch.sin(ph))
 
 
 def pack_codes(codes: torch.Tensor) -> torch.Tensor:
@@ -234,10 +250,16 @@ def track_block(
         start = torch.clamp(st.pos.to(torch.int64), 0, max(w_len - n_max, 0))
         x = window[(start[:, None] + ki[None, :]).clamp(max=w_len - 1)]
 
-        # ---- correlation: K3 on CUDA, its plain version on the CPU --------
-        phase0 = torch.remainder(st.carrier_phase, 2.0 * np.pi).to(
-            torch.float32)
-        ph_step = ph_rate * st.carrier_doppler
+        # ---- correlation: K3 on CUDA, its plain version on the CPU; with
+        # FDMA on samples already wiped off, at a zero phase and step ------
+        if conf.fdma:
+            x = fdma_wipe(x, st, fs)
+            phase0 = torch.zeros_like(st.carrier_doppler)
+            ph_step = phase0
+        else:
+            phase0 = torch.remainder(st.carrier_phase, 2.0 * np.pi).to(
+                torch.float32)
+            ph_step = ph_rate * st.carrier_doppler
         scalars = torch.stack([
             st.rem_code_phase.to(torch.float32),
             code_step.to(torch.float32),
@@ -324,8 +346,10 @@ def track_block(
 
         # ---- advance the NCO state by the consumed period ----------------
         nf64 = n.to(torch.float64)
-        carrier_phase = st.carrier_phase + (
-            2.0 * np.pi / fs) * st.carrier_doppler.to(torch.float64) * nf64
+        nco_freq = st.carrier_doppler.to(torch.float64)
+        if conf.fdma:
+            nco_freq = nco_freq + st.carrier_offset
+        carrier_phase = st.carrier_phase + (2.0 * np.pi / fs) * nco_freq * nf64
         rem_new = st.rem_code_phase + nf64 * code_step - code_len
         rem_new = torch.where(rem_new < 0.0, rem_new + code_len, rem_new)
 

@@ -75,8 +75,8 @@ from gnss_sdr_tpu_torch.tracking.dll_pll import (
 
 
 def fused_eligible(conf: DllPllConf) -> bool:
-    """Plans the fused kernel covers; the Kalman mode keeps the eager
-    engine (FDMA raises in both engines until ROADMAP queue item 10)."""
+    """Plans the fused kernel covers (FDMA among them); the Kalman mode
+    keeps the eager engine."""
     return not conf.kf
 
 
@@ -176,10 +176,14 @@ def fused_track_block(
     n_i = n.to(torch.int32)
     dop = col(LANE_DOPPLER)
     # float64 accumulated carrier phase for the observables, at the Doppler
-    # in force during each period (enabled gating happens at the fold)
+    # in force during each period (enabled gating happens at the fold);
+    # FDMA: the NCO frequency includes the slot offset (the eager engine's
+    # doppler + carrier_offset)
     dop_pre = torch.cat([state.carrier_doppler[None, :], dop[:-1]], dim=0)
-    dphi = (2.0 * np.pi / float(conf.fs)) * dop_pre.to(torch.float64) * \
-        n.to(torch.float64)
+    nco = dop_pre.to(torch.float64)
+    if conf.fdma:
+        nco = nco + state.carrier_offset[None, :]
+    dphi = (2.0 * np.pi / float(conf.fs)) * nco * n.to(torch.float64)
     phase = state.carrier_phase[None, :] + torch.cumsum(dphi, dim=0)
     # disabled channels hold their position
     pos_end = (state.pos[None, :].to(torch.int64)

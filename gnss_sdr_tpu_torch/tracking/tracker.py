@@ -23,8 +23,9 @@ on the CPU; ``True`` or ``False`` forces one (``True`` on the CPU runs K1's
 plain version). ``DllPllConf`` is a verbatim copy of the TPU package's,
 whose comments describe that package's automatic choices; here
 ``pallas_correlator`` is not read (the eager engine always correlates
-through K3 or its plain version). FDMA and the Kalman mode raise
-``NotImplementedError``.
+through K3 or its plain version). FDMA plans (GLONASS) run in both
+engines, each channel's slot offset set by ``start_channel``'s
+``carrier_offset_hz``; the Kalman mode raises ``NotImplementedError``.
 
 The TPU package falls back from its fused kernel when window positions
 would pass 2^24 (float32 sample positions) or when channel positions

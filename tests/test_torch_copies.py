@@ -13,6 +13,7 @@ COPIES = [
     "codes/galileo_e1.py",
     "codes/galileo_e5a.py",
     "codes/galileo_e5b.py",
+    "codes/glonass_ca.py",
     "codes/gps_l1_ca.py",
     "codes/gps_l2c.py",
     "codes/gps_l5.py",
@@ -23,6 +24,7 @@ COPIES = [
     "constants/galileo_e5a.py",
     "constants/galileo_e5b.py",
     "constants/general.py",
+    "constants/glonass_l1.py",
     "constants/gps_l1_ca.py",
     "constants/gps_l2c.py",
     "constants/gps_l5.py",
@@ -48,14 +50,17 @@ COPIES = [
     "pvt/atmosphere.py",
     "pvt/coords.py",
     "pvt/ephemeris.py",
+    "pvt/glonass.py",
     "pvt/solver.py",
     "simulate/constellation.py",
     "simulate/galileo.py",
+    "simulate/glonass.py",
     "simulate/multiband.py",
     "simulate/scenario.py",
     "telemetry/cnav.py",
     "telemetry/fec.py",
     "telemetry/fnav.py",
+    "telemetry/gnav.py",
     "telemetry/inav.py",
     "telemetry/lnav.py",
     "telemetry/lnav_encode.py",

@@ -24,6 +24,10 @@ from torch_cases import (
     E1_KW,
     E1_LEN,
     FS,
+    GLO_FS,
+    GLO_KW,
+    GLO_LEN,
+    GLO_NMAX,
     L5_FS,
     L5_KW,
     L5_LEN,
@@ -39,7 +43,10 @@ from torch_cases import (
     correlator_inputs,
     correlator_rel_err,
     conf_kw,
+    fdma_noise_inputs,
     fused_noise_case,
+    glonass_block,
+    glonass_signal,
     long_code_block,
     long_code_signal,
     pilot_inputs,
@@ -420,6 +427,63 @@ def test_long_code_block_k500_matches_plain_cuda(cuda, plan_name):
         assert counter.launches == before + 1
         assert_rows_close(o_p[:, :2], o_k[:, :2], tol=2e-4,
                           lanes=check_lanes(3))
+        assert_rows_close(o_p, o_k, tol=2e-3, lanes=check_lanes(3))
+
+
+# K1 and K2 with FDMA at the GLONASS shape (the 511-chip code at 3.6 Msps,
+# n_max 3602, 10-period integration), each channel on one of the
+# frequency channels k = -7..+6, whose slot offsets (up to 3.9 MHz) alias
+# past fs / 2: two launches of K = 20 on fdma_noise_inputs' noise window at
+# C = 1, 8 and 33, and one block of K = 200 on a signal of the code.
+FDMA_CASES = [1, 8, 33]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", FDMA_CASES, ids=[f"C{c}" for c in FDMA_CASES])
+def test_fdma_fused_kernels_match_plain_cuda(cuda, C):
+    """K1 and K2 with FDMA against their plain version over two launches
+    of K = 20 on noise: 5e-5 relative over the first two periods and 2e-3
+    over all (the JAX suite's bounds between its two kernels), lanes 10
+    and 17 exact."""
+    K = 20
+    codes, window, scal = fdma_noise_inputs(C, K, 2, seed=8)
+    spec = k1.make_blocked_spec(K, GLO_NMAX, GLO_LEN, TAPS, fdma=True,
+                                **GLO_KW)
+    o_p = run_tracker(k1.track_blocked_plain, spec, window, codes, scal, 2,
+                      cuda)
+    for make, fn in ((k1.make_blocked_spec, k1.track_blocked),
+                     (k2.make_full_spec, k2.track_full)):
+        before = fn.launches
+        o_k = run_tracker(fn, make(K, GLO_NMAX, GLO_LEN, TAPS, fdma=True,
+                                   **GLO_KW), window, codes, scal, 2, cuda)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2
+        assert_rows_close(o_p[:, :2], o_k[:, :2], lanes=check_lanes(3))
+        assert_rows_close(o_p, o_k, tol=2e-3, lanes=check_lanes(3))
+
+
+@pytest.mark.cuda
+def test_fdma_block_k200_matches_plain_cuda(cuda):
+    """One block of K = 200 periods of eight glonass_l1_ca_plan channels
+    (k = -7 .. +6) tracking glonass_signal's channels, as the tracker
+    packs it: K1 and K2 against their plain version, 5e-5 relative over
+    the first two periods and 2e-3 over all, lanes 10 and 17 exact."""
+    C, K = 8, 200
+    dops = [1200.0, -2500.0, 3400.0, -400.0, 150.0, -3900.0, 2600.0,
+            -1700.0]
+    delays = [37.0 + 431.0 * c for c in range(C)]
+    ks = [-7, -5, -3, -1, 0, 2, 4, 6]
+    sig = glonass_signal(int(GLO_FS * (K + 3) * 1e-3), dops, delays, ks, 5)
+    window, codes, scal, pos, spec = glonass_block(K, dops, delays, ks, sig,
+                                                   cuda)
+    assert spec.fdma
+    o_p = k1.track_blocked_plain(window, codes, scal, pos, spec).cpu().numpy()
+    assert (o_p[:, :, 20].sum(axis=1) == K // 10).all()
+    for fn in (k1.track_blocked, k2.track_full):
+        before = fn.launches
+        o_k = fn(window, codes, scal, pos, spec).cpu().numpy()
+        assert fn.launches == before + 1
+        assert_rows_close(o_p[:, :2], o_k[:, :2], lanes=check_lanes(3))
         assert_rows_close(o_p, o_k, tol=2e-3, lanes=check_lanes(3))
 
 

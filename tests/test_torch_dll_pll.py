@@ -22,7 +22,16 @@ from gnss_sdr_tpu.tracking.tracker import Tracker as JTracker
 from gnss_sdr_tpu_torch.tracking import dll_pll as tdll
 from gnss_sdr_tpu_torch.tracking.conf import DllPllConf as TConf
 
-from torch_cases import C, DOPS, conf_kw, make_signal
+from torch_cases import (
+    C,
+    DOPS,
+    SD,
+    SP,
+    conf_kw,
+    make_signal,
+    pilot_signal,
+    pilot_tables,
+)
 
 torch.set_num_threads(2)
 
@@ -130,15 +139,73 @@ def test_state_round_trip():
         np.testing.assert_array_equal(v, d[k].astype(v.dtype), err_msg=k)
 
 
+FDMA_OFFS = [562.5e3, -1125.0e3]   # tests/test_fused_receiver.py's slots
+
+
+def run_fdma(pilot):
+    """Two blocks of the FDMA mode (with the pilot: engaged secondaries,
+    atan2 and 5-period integration) in both packages from the same started
+    state, on a signal whose carriers sit at FDMA_OFFS."""
+    kw = dict(fdma=True)
+    if pilot:
+        kw.update(track_pilot=True, sec_len_pilot=SP, sec_len_data=SD,
+                  extend_correlation_symbols=5)
+        tbl, dtbl, sec_p, sec_d = pilot_tables()
+        sig = pilot_signal(200_000, FDMA_OFFS)
+    else:
+        tbl = gps_l1_ca_code_table()[:C].astype(np.float32)
+        dtbl = sec_p = sec_d = None
+        sig = make_signal(tbl, 200_000, offs=FDMA_OFFS)
+    jconf = JConf(**conf_kw(pallas_correlator=False, **kw))
+    trk = JTracker(jconf, tbl, data_code_table=dtbl, sec_pilot_table=sec_p,
+                   sec_data_levels=sec_d)
+    for ch in range(C):
+        trk.start_channel(ch, prn=ch + 1, code_row=ch,
+                          acq_delay_samples=0.0,
+                          acq_doppler_hz=DOPS[ch] + 30.0,
+                          acq_samplestamp=0, current_abs_sample=0,
+                          carrier_offset_hz=FDMA_OFFS[ch])
+    sj = trk.state._replace(pos=jnp.asarray(trk.pos_abs.astype(np.int32)))
+    if pilot:
+        on = jnp.ones(C, bool)
+        sj = sj._replace(sec_active=on, use_atan2=on,
+                         integ_len=jnp.full(C, 5, jnp.int32))
+        tabs = (trk.codes, trk.data_codes, trk.sec_pilot, trk.sec_data)
+    else:
+        tabs = (trk.codes,)
+    st = tdll.state_from_numpy(to_numpy(sj), "cpu")
+    tconf = TConf(**conf_kw(**kw))
+    outs = []
+    for _ in range(2):
+        sj, oj = jdll.track_block(jconf, sj, jnp.asarray(sig),
+                                  *[jnp.asarray(t) for t in tabs])
+        st, ot = tdll.track_block(tconf, st, torch.as_tensor(sig),
+                                  *[torch.as_tensor(t) for t in tabs])
+        outs.append(({k: np.asarray(v) for k, v in oj._asdict().items()},
+                     {k: v.numpy() for k, v in ot.items()}))
+    return outs, sj, st
+
+
 @pytest.mark.parametrize("kw,item", [
-    ({"track_pilot": True, "fdma": True}, 10), ({"fdma": True}, 10),
+    ({"track_pilot": True, "fdma": True}, None), ({"fdma": True}, None),
     ({"kf": True}, 12)], ids=["pilot", "fdma", "kf"])
 def test_unsupported_modes_raise(kw, item):
-    """FDMA, with or without the pilot mode, and the Kalman mode raise,
-    naming the ROADMAP queue item that ports them (the pilot mode alone
-    runs: tests/test_torch_galileo_tracking.py)."""
+    """The Kalman mode raises, naming the ROADMAP queue item that ports it.
+    FDMA, with or without the pilot mode, runs: the port's eager engine
+    (the samples wiped off in float64, K3's plain version at a zero phase)
+    against JAX's XLA path over two blocks with this file's tolerances,
+    the slot offset in the accumulated carrier phase of both."""
     conf = TConf(**conf_kw(**kw))
     st = tdll.init_state(conf, "cpu")
-    with pytest.raises(NotImplementedError, match=f"queue item {item}"):
-        tdll.track_block(conf, st, torch.zeros(100_000, dtype=torch.complex64),
-                         torch.ones(C, 1023))
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"queue item {item}"):
+            tdll.track_block(conf, st,
+                             torch.zeros(100_000, dtype=torch.complex64),
+                             torch.ones(C, 1023))
+        return
+    outs, sj, st = run_fdma(kw.get("track_pilot", False))
+    for a, b in outs:
+        assert_match(a, b)
+    np.testing.assert_array_equal(to_numpy(sj)["pos"], st.pos.numpy())
+    # 30 periods of the 562.5 kHz offset alone move the phase ~1e5 rad
+    assert np.abs(outs[1][1]["carrier_phase"]).max() > 1e4

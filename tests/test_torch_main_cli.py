@@ -233,9 +233,10 @@ def test_fir_filter_raises():
 
 def test_galileo_group_raises():
     """The two RF chains of conf/dual_band_gps_gal.conf (GPS L1 C/A on L1,
-    Galileo E5a, group 5X, on L5) and a GPS L5 group: both factories build
-    equal plans. Galileo E5b (group 7X) is not ported yet: its group names
-    the plan and its ROADMAP queue item."""
+    Galileo E5a, group 5X, on L5), a GPS L5 group, and the groups of
+    Galileo E5b (7X), QZSS L1 C/A and L5 (J1, J5) and GLONASS L1 and L2 C/A
+    (1G, 2G): both factories build equal plans. BeiDou B1I (group B1) is
+    not ported yet: its group names the plan and its ROADMAP queue item."""
     path = ROOT / "conf" / "dual_band_gps_gal.conf"
     rates = {"L1": 2.6e6, "L5": 10.4e6}
     jp = j_plans(JFileConfiguration(path), rates)
@@ -250,10 +251,76 @@ def test_galileo_group_raises():
     (ta,) = get_signal_plans(_cfg(**props), {"L5": 10.23e6})
     assert_plans_equal(ja, ta)
     assert ta.acq_conf.doppler_max_hz == 3000.0
-    cfg = _cfg(Channels_7X__count=2)
+    for group, band, fs in (("7X", "E5b", 10.23e6), ("J1", "L1", 2.6e6),
+                            ("J5", "L5", 10.23e6), ("1G", "G1", 3.6e6),
+                            ("2G", "G2", 3.6e6)):
+        props = {f"Channels_{group}__count": 2,
+                 f"Tracking_{group}__pll_bw_hz": 25.0}
+        jps = j_plans(_cfg(JInMemoryConfiguration, **props), {band: fs})
+        tps = get_signal_plans(_cfg(**props), {band: fs})
+        assert [(p.name, p.band) for p in tps] == [(group, band)]
+        assert_plans_equal(jps[0], tps[0])
+        assert tps[0].trk_conf.pll_bw_hz == 25.0
+    cfg = _cfg(Channels_B1__count=2)
     with pytest.raises(NotImplementedError,
-                       match="galileo_e5b_plan.*queue item 10"):
-        get_signal_plans(cfg, {"E5b": 10.23e6})
+                       match="beidou_b1i_plan.*queue item 10"):
+        get_signal_plans(cfg, {"B1": 4e6})
+
+
+def test_glonass_conf_runs(tmp_path, monkeypatch, capsys):
+    """A conf of one RF chain and a Channels_1G group (reference-dialect
+    keys, as chip_smoke.py's phase 25 writes them) on a 0.15 s ibyte copy
+    of tests/test_glonass.py's scenario (3.6 Msps, seed 0). The JAX CLI
+    refuses it: its RF chains feed the L1, L5 and B1 bands only (a
+    deliberate difference, ROADMAP section 3). The port's runs it and
+    starts the slots that the port's Receiver starts from Python on the
+    same samples, at the same Dopplers and delays."""
+    from gnss_sdr_tpu_torch.receiver.plans import glonass_l1_ca_plan
+    from gnss_sdr_tpu_torch.simulate.glonass import (
+        GlonassScenario,
+        GlonassScenarioConfig,
+    )
+
+    fs = 3_600_000
+    scen = GlonassScenario(GlonassScenarioConfig(
+        fs=fs, tow_start_s=7335.0, duration_s=28.0, cn0_dbhz=46.0,
+        max_sats=6, seed=0))
+    raw = np.round(scen.generate(0, int(0.15 * fs)) * 16)
+    cap = tmp_path / "capture_glo.dat"
+    cap.write_bytes(encode_samples(raw, "ibyte"))
+    conf = tmp_path / "glonass_l1_file.conf"
+    conf.write_text(f"""
+[GNSS-SDR]
+GNSS-SDR.internal_fs_sps={fs}
+SignalSource.implementation=File_Signal_Source
+SignalSource.filename={cap}
+SignalSource.item_type=ibyte
+SignalSource.sampling_frequency={fs}
+SignalConditioner.implementation=Signal_Conditioner
+DataTypeAdapter.implementation=Ibyte_To_Complex
+InputFilter.implementation=Pass_Through
+Resampler.implementation=Pass_Through
+Channels_1G.count=6
+Acquisition_1G.implementation=GLONASS_L1_CA_PCPS_Acquisition
+Acquisition_1G.doppler_max=5000
+Acquisition_1G.doppler_step=250
+Tracking_1G.implementation=GLONASS_L1_CA_DLL_PLL_Tracking
+TelemetryDecoder_1G.implementation=GLONASS_L1_CA_Telemetry_Decoder
+PVT.implementation=RTKLIB_PVT
+PVT.display_rate_ms=1000
+""")
+    with pytest.raises(ValueError, match="needs band G1"):
+        jmain.run_from_config(JFileConfiguration(conf))
+    made = _capturing(monkeypatch, tmain)
+    status = tmain.run_from_config(FileConfiguration(conf), device="cpu")
+    (g,) = made[0].groups
+    assert (g.plan.name, g.plan.band, g.plan.fs) == ("1G", "G1", fs)
+    rx = Receiver(ReceiverConfig(fs=fs, num_channels=6, device="cpu"),
+                  plans=[glonass_l1_ca_plan(fs, num_channels=6)])
+    rx.feed(raw.astype(np.complex64))
+    ref = rx.acquire()
+    assert len(ref) == 4
+    assert status.acquired == ref
 
 
 def test_signal_generator_raises():

@@ -19,12 +19,17 @@ import jax.numpy as jnp
 
 from gnss_sdr_tpu.ops.track_kernel_blocked import make_fused_tracker_blocked
 from gnss_sdr_tpu_torch.ops import track_kernel_blocked as tkb
+from gnss_sdr_tpu_torch.ops.slots import S_ACC0
 
 from torch_cases import (
     FS,
+    SD,
+    SP,
     TAPS,
     assert_rows_close,
     carry,
+    check_lanes,
+    pilot_inputs,
     run_tracker,
     tracker_inputs,
 )
@@ -68,13 +73,34 @@ def test_plain_matches_jax_blocked_kernel(C, K, launches, extend, order,
 
 
 def test_unsupported_modes_raise():
-    """FDMA raises, naming its ROADMAP queue item, with or without the
-    pilot mode; a tap count other than 3 or 5 and a secondary code longer
-    than a 128-chip table row are refused (T = 5 and the pilot mode run:
-    tests/test_torch_galileo_kernels.py)."""
-    for kw in ({"fdma": True}, {"fdma": True, "track_pilot": True}):
-        with pytest.raises(NotImplementedError, match="queue item 10"):
-            tkb.make_blocked_spec(4, 2666, 1023, TAPS, **kw, **KW)
+    """FDMA builds and runs, with or without the pilot mode: at a zero slot
+    offset its block is the CDMA block within float32 rounding, at an
+    offset it is another (the JAX parity of the FDMA mode:
+    tests/test_torch_fdma_kernels.py). A tap count other than 3 or 5 and a
+    secondary code longer than a 128-chip table row are refused (T = 5 and
+    the pilot mode run: tests/test_torch_galileo_kernels.py)."""
+    for pilot in (False, True):
+        kw = dict(track_pilot=True, sec_len_pilot=SP, sec_len_data=SD,
+                  sec_lcm=SP * SD) if pilot else {}
+        spec = tkb.make_blocked_spec(4, 2666, 1023, TAPS, fdma=True, **kw, **KW)
+        assert spec.fdma and spec.track_pilot == pilot
+        codes, dcodes, wr, wi, scal, secp, secd = pilot_inputs(
+            3, 4, 2666, TAPS, pilot, SP, SD, SP * SD, 1, 3, code_len=1023)
+        window = (wr.ravel() + 1j * wi.ravel()).astype(np.complex64)
+        tables = (dcodes, secp, secd) if pilot else ()
+        o_cdma = run_tracker(tkb.track_blocked, tkb.make_blocked_spec(
+            4, 2666, 1023, TAPS, **kw, **KW), window, codes, scal, 1, "cpu",
+            tables)
+        o_zero = run_tracker(tkb.track_blocked, spec, window, codes, scal, 1,
+                             "cpu", tables)
+        assert_rows_close(o_cdma, o_zero, lanes=check_lanes(3))
+        scal[:, S_ACC0 + 6] = [-3.0, 0.4, 2.5]
+        o_fdma = run_tracker(tkb.track_blocked, spec, window, codes, scal, 1,
+                             "cpu", tables)
+        assert np.isfinite(o_fdma).all()
+        assert ((o_fdma[:, :, 14] >= 0.0)
+                & (o_fdma[:, :, 14] < 2 * np.pi)).all()
+        assert not np.allclose(o_fdma[:, :, :6], o_zero[:, :, :6])
     with pytest.raises(ValueError, match="3 or 5 taps"):
         tkb.make_blocked_spec(4, 2666, 1023, [-0.5, -0.25, 0.25, 0.5], **KW)
     with pytest.raises(ValueError, match="secondary"):

@@ -288,16 +288,18 @@ def correlator_rel_err(got, ref, num_taps):
     return float((np.abs(g - r) / np.maximum(np.abs(r), 1.0)).max())
 
 
-def make_signal(tbl, n, seed=1):
+def make_signal(tbl, n, seed=1, offs=(0.0, 0.0)):
     """Two GPS channels at DOPS, no data bits, light noise (the signal of
-    tests/test_fused_receiver.py)."""
+    tests/test_fused_receiver.py); with ``offs`` each carrier also moved by
+    its FDMA slot offset (Hz)."""
     rng = np.random.default_rng(seed)
     tt = np.arange(n) / FS
     sig = np.zeros(n, np.complex64)
     for c in range(C):
         cph = (1.023e6 * (1 + DOPS[c] / 1575.42e6)) * tt
         chips = tbl[c][np.floor(cph).astype(np.int64) % 1023]
-        sig += 0.5 * chips * np.exp(2j * np.pi * DOPS[c] * tt + 0.3j * c)
+        sig += 0.5 * chips * np.exp(2j * np.pi * (DOPS[c] + offs[c]) * tt
+                                    + 0.3j * c)
     sig = sig + (rng.normal(size=n) + 1j * rng.normal(size=n)) * 0.05
     return sig.astype(np.complex64)
 
@@ -329,9 +331,10 @@ def pilot_tables():
     return tbl, dtbl, sec_p, sec_d
 
 
-def pilot_signal(n):
+def pilot_signal(n, offs=(0.0, 0.0)):
     """The pilot case's composite pilot + data signal, both secondaries
-    from period 0."""
+    from period 0; with ``offs`` each carrier also moved by its FDMA slot
+    offset (Hz)."""
     tbl, dtbl, sec_p, sec_d = pilot_tables()
     tt = np.arange(n) / FS
     sig = np.zeros(n, np.complex64)
@@ -342,7 +345,7 @@ def pilot_signal(n):
         pil = tbl[c][ci % 1023] * sec_p[c][per % SP]
         dat = dtbl[c][ci % 1023] * sec_d[per % SD]
         sig += 0.35 * (pil + dat) * np.exp(
-            2j * np.pi * DOPS[c] * tt + 0.3j * c)
+            2j * np.pi * (DOPS[c] + offs[c]) * tt + 0.3j * c)
     rng = np.random.default_rng(1)
     return (sig + (rng.normal(size=n) + 1j * rng.normal(size=n)) * 0.05
             ).astype(np.complex64)
@@ -435,3 +438,86 @@ def long_code_block(plan, K, dops, delays, window, device):
              torch.as_tensor(trk.codes, device=device),
              _pack_scalars(conf, st), st.pos, build_fused_engine(conf)),
             tabs)
+
+
+# GLONASS L1 C/A at 3.6 Msps: the 511-chip code at 0.511 Mchip/s, n_max as
+# glonass_l1_ca_plan gives it, FDMA offsets k * 562.5 kHz for k = -7..+6
+GLO_FS = 3.6e6
+GLO_KW = dict(fs=GLO_FS, code_rate_cps=0.511e6, carrier_freq_hz=1.602e9)
+GLO_LEN = 511
+GLO_NMAX = 3602
+GLO_KS = list(range(-7, 7))
+
+
+def fdma_w_off(ks, fs=GLO_FS):
+    """The FDMA scalar slot of channels on frequency channels ``ks``: the
+    offset k * 562.5 kHz in rad/sample, reduced to [-pi, pi) in float64 as
+    tracking/fused.py packs it."""
+    w = 2.0 * np.pi * np.asarray(ks, np.float64) * 562.5e3 / fs
+    return (np.remainder(w + np.pi, 2.0 * np.pi) - np.pi).astype(np.float32)
+
+
+def fdma_noise_inputs(C, K, launches, seed):
+    """tracker_inputs' noise window and scalars at the GLONASS shape (511
+    chips, GLO_NMAX, 10-period integration), channel c on frequency
+    channel GLO_KS[c mod 14]."""
+    codes, wr, wi, scal = tracker_inputs(C, K, GLO_LEN, GLO_NMAX, launches,
+                                         10, seed)
+    scal[:, S_ACC0 + 6] = fdma_w_off([GLO_KS[c % 14] for c in range(C)])
+    window = (wr.ravel() + 1j * wi.ravel()).astype(np.complex64)
+    return codes, window, scal
+
+
+def glonass_signal(n, dops, delays, ks, seed):
+    """Channels c of the GLONASS C/A code at GLO_FS on frequency channels
+    ks[c] at Dopplers dops[c] (Hz) and code delays delays[c] (samples), no
+    data bits, with noise."""
+    from gnss_sdr_tpu_torch.codes.glonass_ca import glonass_ca_code
+
+    rng = np.random.default_rng(seed)
+    code = glonass_ca_code().astype(np.float32)
+    tt = np.arange(n) / GLO_FS
+    sig = np.zeros(n, np.complex64)
+    for c, (dop, dly, k) in enumerate(zip(dops, delays, ks)):
+        u = np.floor((0.511e6 * (1 + dop / 1.602e9)) * (tt - dly / GLO_FS)
+                     ).astype(np.int64)
+        sig += (0.35 * code[u % GLO_LEN] * np.exp(
+            2j * np.pi * (dop + k * 562.5e3) * tt + 0.3j * c)
+        ).astype(np.complex64)
+    noise = rng.normal(size=(n, 2)).astype(np.float32) * 0.05
+    return (sig + noise[:, 0] + 1j * noise[:, 1]).astype(np.complex64)
+
+
+def glonass_block(K, dops, delays, ks, window, device):
+    """The fused engine's inputs for one block of K periods of
+    glonass_l1_ca_plan's channels on ``window`` (glonass_signal's), as the
+    tracker packs them: each channel started at its delay 3 Hz off its
+    Doppler with its slot offset, narrow bandwidths and 10-period
+    integration. Returns (window, codes, scalars, pos, spec)."""
+    import dataclasses
+
+    from gnss_sdr_tpu_torch.receiver.plans import glonass_l1_ca_plan
+    from gnss_sdr_tpu_torch.tracking.fused import (
+        _pack_scalars,
+        build_fused_engine,
+    )
+    from gnss_sdr_tpu_torch.tracking.tracker import Tracker
+
+    plan = glonass_l1_ca_plan(GLO_FS, num_channels=len(dops))
+    conf = dataclasses.replace(plan.trk_conf, steps_per_block=K)
+    trk = Tracker(conf, plan.code_table, device=device)
+    for ch in range(len(dops)):
+        trk.start_channel(ch, prn=ch + 1, code_row=ch,
+                          acq_delay_samples=delays[ch],
+                          acq_doppler_hz=dops[ch] + 3.0,
+                          acq_samplestamp=0, current_abs_sample=0,
+                          carrier_offset_hz=ks[ch] * 562.5e3)
+    on = torch.ones(len(dops), dtype=torch.bool, device=device)
+    st = trk.state.replace(
+        pos=torch.as_tensor(trk.pos_abs.astype(np.int32), device=device),
+        narrow=on, fll_active=~on,
+        integ_len=torch.full((len(dops),), 10, dtype=torch.int32,
+                             device=device))
+    return (torch.as_tensor(window, device=device),
+            torch.as_tensor(trk.codes, device=device),
+            _pack_scalars(conf, st), st.pos, build_fused_engine(conf))
