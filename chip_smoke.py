@@ -30,10 +30,19 @@ against their plain version at the GLONASS shape (3.6 Msps, frequency
 channels -7..+6, K = 20 and 200), the 28 s receiver of
 ``tests/test_glonass.py`` from Python, the three engines on
 ``tests/test_fused_receiver.py``'s FDMA case, and the CLI with
-``Channels_1G`` keys through K1 and K2. Each run is held to its test's
-gates, and each kernel it ran to its plain version on a block of the
-run's own inputs. The Galileo, dual-band and GLONASS captures are made in
-1 s chunks by worker processes. Every phase prints one JSON line; any failure exits nonzero. The last two lines are
+``Channels_1G`` keys through K1 and K2. Then the last plans: K1, K2 and
+K3 against their plain version at the BeiDou B1I and B3I (the D1 mode:
+NH20 on the one data component, the Costas discriminator kept), GPS L2C
+(20 ms periods), Galileo E6B and SBAS shapes, the GPS L1 + BeiDou B1I
+receiver of ``tests/test_beidou.py`` from Python (with the three engines
+on its B1I capture) and through the CLI with two RF chains (K1 and K2),
+the B1I GEO (D2) case of ``tests/test_beidou_geo.py`` through the
+``Tracker``, PCPS for E6B, SBAS, L2C and B3I, and ``bench.py``'s mc64
+(GPS, Galileo, GLONASS and BeiDou, 16 channels each, three bands). Each
+run is held to its test's gates, and each kernel it ran to its plain
+version on a block of the run's own inputs. The Galileo, dual-band,
+GLONASS, BeiDou and mc64 captures are made in 1 s chunks by worker
+processes. Every phase prints one JSON line; any failure exits nonzero. The last two lines are
 the kernel table and ``{"ok": true, "device": {...}}``. Needs a CUDA
 device and the repository's ``gnss_sdr_tpu_torch`` package; imports no
 JAX.
@@ -284,11 +293,12 @@ def fused_engine(value: str | None):
             os.environ["GNSS_SDR_TPU_FUSED"] = old
 
 
-def assert_match(a, b, prompt_tol=5e-3, dop_tol=0.1,
+def assert_match(a, b, prompt_tol=5e-3, dop_tol=0.1, phase_tol=1e-3,
                  channels=slice(None)) -> dict:
     """tests/test_fused_receiver.py's _assert_match on two BlockResults,
     over ``channels`` (all by default; an idle channel's rows track
-    nothing); returns the measured differences."""
+    nothing), the carrier phase within ``phase_tol`` rad; returns the
+    measured differences."""
     oa = {k: v[:, channels] for k, v in a.outputs.items()}
     ob = {k: v[:, channels] for k, v in b.outputs.items()}
     for k in ("n_samples", "pos_end", "boundary"):
@@ -306,7 +316,7 @@ def assert_match(a, b, prompt_tol=5e-3, dop_tol=0.1,
             oa["rem_code_phase"] - ob["rem_code_phase"]).max()),
     }
     limits = {"doppler_hz": dop_tol, "prompt_rel_median": prompt_tol,
-              "carrier_phase_rad": 1e-3, "rem_code_phase_chips": 1e-3}
+              "carrier_phase_rad": phase_tol, "rem_code_phase_chips": 1e-3}
     for k, lim in limits.items():
         if not diffs[k] < lim:
             raise AssertionError(f"engines disagree on {k}: {diffs[k]}")
@@ -853,12 +863,30 @@ DUAL16_L1 = dict(fs=FS, tow_start_s=7314.0, duration_s=6.0, cn0_dbhz=46.0,
                  max_sats=8, seed=4)
 DUAL16_GAL = dict(fs=FS, tow_start_s=7310.0, duration_s=6.0, cn0_dbhz=46.0,
                   max_sats=8, seed=4)
-# capture -> (primary scenario's kind, second band or None)
+# tests/test_beidou.py's gps_bds_receiver: GPS L1 C/A and BeiDou B1I at
+# 2.6 Msps, 35 s, seed 1, 4 satellites each (BDT = GPST - 14 s phases the
+# D1 frame so the last ephemeris subframe completes at 32 s)
+GPS_BDS = dict(fs=FS, tow_start_s=7314.0, duration_s=35.0, cn0_dbhz=46.0,
+               rx_clock_bias_s=1.2e-4, min_elevation_deg=15.0, max_sats=4,
+               seed=1)
+# bench.py's mc64: GPS and Galileo on a shared L1 at 4 Msps, GLONASS G1 at
+# 3.6 Msps, BeiDou B1 at 2.6 Msps, 16 satellites asked of each, 6 s, seed 5
+MC64_FS = {"L1": 4.0e6, "G1": 3.6e6, "B1": 2.6e6}
+MC64_GPS = dict(fs=4.0e6, tow_start_s=7314.0, duration_s=6.0, cn0_dbhz=46.0,
+                max_sats=16, seed=5)
+MC64_GLO = dict(fs=3.6e6, tow_start_s=7335.0, duration_s=6.0, cn0_dbhz=46.0,
+                max_sats=16, seed=5)
+MC64_BDS = dict(fs=2.6e6, duration_s=6.0, cn0_dbhz=46.0, max_sats=16, seed=5)
+# capture -> (primary scenario's kind, second band, a second scenario on
+# the primary's band, or None)
 CAPTURES = {
     "dual_l5": ("dual_l1", "l5"), "e5a": ("e5a_gal", "e5a"),
     "dual16_e5a": ("dual16_gal", "e5a"), "dual_l1": ("dual_l1", None),
     "dual16_l1": ("dual16_l1", None), "e1b": ("e1b", None),
     "e1bc": ("e1bc", None), "gal8": ("gal8", None), "glo": ("glo", None),
+    "bds_l1": ("bds_l1", None), "bds_b1": ("bds_b1", None),
+    "geo": ("geo", None), "mc64_l1": ("mc64_gps", "mc64_gal"),
+    "mc64_g1": ("mc64_glo", None), "mc64_b1": ("mc64_bds", None),
 }
 _SCEN_CACHE: dict = {}
 
@@ -866,7 +894,13 @@ _SCEN_CACHE: dict = {}
 def gal_scenario(kind: str):
     """The primary scenario ``kind`` (one per process): a Galileo
     scenario of GAL_SCENARIOS, a GPS or Galileo scenario of the dual-band
-    runs, or the GLONASS scenario ("glo")."""
+    runs, the GLONASS scenario ("glo"), the GPS and BeiDou scenarios of
+    gps_bds ("bds_l1", "bds_b1"), the B1I GEO signal ("geo") or a scenario
+    of mc64 ("mc64_gps", "mc64_gal", "mc64_glo", "mc64_bds")."""
+    from gnss_sdr_tpu_torch.simulate.beidou import (
+        BeidouScenario,
+        BeidouScenarioConfig,
+    )
     from gnss_sdr_tpu_torch.simulate.galileo import (
         GalileoScenario,
         GalileoScenarioConfig,
@@ -878,10 +912,18 @@ def gal_scenario(kind: str):
     from gnss_sdr_tpu_torch.simulate.scenario import GpsScenario, ScenarioConfig
 
     if kind not in _SCEN_CACHE:
-        gps = {"dual_l1": DUAL_L1, "dual16_l1": DUAL16_L1}
-        gal = dict(GAL_SCENARIOS, e5a_gal=E5A_GAL, dual16_gal=DUAL16_GAL)
-        if kind == "glo":
-            scen = GlonassScenario(GlonassScenarioConfig(**GLO_SCEN))
+        gps = {"dual_l1": DUAL_L1, "dual16_l1": DUAL16_L1, "bds_l1": GPS_BDS,
+               "mc64_gps": MC64_GPS}
+        gal = dict(GAL_SCENARIOS, e5a_gal=E5A_GAL, dual16_gal=DUAL16_GAL,
+                   mc64_gal=MC64_GPS)
+        glo = {"glo": GLO_SCEN, "mc64_glo": MC64_GLO}
+        bds = {"bds_b1": GPS_BDS, "mc64_bds": MC64_BDS}
+        if kind == "geo":
+            scen = GeoSignal()
+        elif kind in glo:
+            scen = GlonassScenario(GlonassScenarioConfig(**glo[kind]))
+        elif kind in bds:
+            scen = BeidouScenario(BeidouScenarioConfig(**bds[kind]))
         elif kind in gps:
             scen = GpsScenario(ScenarioConfig(**gps[kind]))
         else:
@@ -890,10 +932,23 @@ def gal_scenario(kind: str):
     return _SCEN_CACHE[kind]
 
 
+class SharedBand:
+    """Two scenarios on one band, summed as bench.py's mc64 sums GPS and
+    Galileo on L1 (each with its own noise)."""
+
+    def __init__(self, primary, other) -> None:
+        self.primary, self.other = primary, other
+        self.fs = primary.cfg.fs
+
+    def generate(self, start: int, n: int) -> np.ndarray:
+        return self.primary.generate(start, n) + self.other.generate(start, n)
+
+
 def capture_source(kind: str):
-    """What generates capture ``kind``: its primary scenario, or the second
+    """What generates capture ``kind``: its primary scenario, the second
     band (GpsL5Band, GalileoE5aBand at 10.4 Msps, 47 dB-Hz, as the tests and
-    bench.py make it) that shares the scenario's geometry."""
+    bench.py make it) that shares the scenario's geometry, or the primary
+    and a second scenario summed on its band (SharedBand)."""
     from gnss_sdr_tpu_torch.simulate.multiband import GalileoE5aBand, GpsL5Band
 
     primary, band = CAPTURES[kind]
@@ -901,9 +956,13 @@ def capture_source(kind: str):
         return gal_scenario(primary)
     key = ("band", kind)
     if key not in _SCEN_CACHE:
-        make = GpsL5Band if band == "l5" else GalileoE5aBand
-        _SCEN_CACHE[key] = make(gal_scenario(primary), fs=L5_FS,
-                                cn0_dbhz=47.0)
+        if band in ("l5", "e5a"):
+            make = GpsL5Band if band == "l5" else GalileoE5aBand
+            _SCEN_CACHE[key] = make(gal_scenario(primary), fs=L5_FS,
+                                    cn0_dbhz=47.0)
+        else:
+            _SCEN_CACHE[key] = SharedBand(gal_scenario(primary),
+                                          gal_scenario(band))
     return _SCEN_CACHE[key]
 
 
@@ -963,7 +1022,8 @@ def record_blocks(every: int = 64):
     tracking/dll_pll.py's ``correlator``): of calls 0, 1, 2, 4, 8, ... and
     of every ``every``-th, the latest per kernel, as ``{kernel: (args,
     kwargs, call index)}``, and the latest per kernel and code length (a
-    dual-band run's bands), as ``{(kernel, length): ...}``. A kernel can
+    dual-band run's bands), as ``{(kernel, length): ...}``, where the
+    first call of each length is kept too. A kernel can
     then be held to its plain version on a block of the run itself."""
     from gnss_sdr_tpu_torch.tracking import dll_pll, fused
 
@@ -976,12 +1036,15 @@ def record_blocks(every: int = 64):
         def recorded(*args, **kw):
             i = calls[0]
             calls[0] += 1
-            if i & (i - 1) == 0 or i % every == 0:
-                kept[attr] = (tuple(a.clone() if isinstance(a, torch.Tensor)
-                                    else a for a in args), dict(kw), i)
-                length = kw["code_len"] if "code_len" in kw else (
-                    args[4].code_len)
-                kept[(attr, length)] = kept[attr]
+            length = kw["code_len"] if "code_len" in kw else (
+                args[4].code_len)
+            keep = i & (i - 1) == 0 or i % every == 0
+            if keep or (attr, length) not in kept:
+                snap = (tuple(a.clone() if isinstance(a, torch.Tensor)
+                              else a for a in args), dict(kw), i)
+                if keep:
+                    kept[attr] = snap
+                kept[(attr, length)] = snap
             return fn(*args, **kw)
 
         saved.append((mod, attr, fn))
@@ -998,11 +1061,13 @@ def record_blocks(every: int = 64):
 
 
 def hold_fused_block(run: str, kname: str, rec, kernels=None,
-                     entry: str | None = None, reps: int = 20) -> dict:
+                     entry: str | None = None, reps: int = 20,
+                     first_tol: float = 2e-4) -> dict:
     """K1 (``kname`` "track_blocked") or K2 ("track_full") against its
     plain version (K1's) on a recorded block ``rec`` of the run ``run``:
-    the long-code bounds (2e-4 relative over the first two periods, 2e-3
-    over the block, tests/test_track_kernel_blocked.py) on check_lanes(T),
+    the long-code bounds (``first_tol``, 2e-4 relative, over the first two
+    periods, 2e-3 over the block, tests/test_track_kernel_blocked.py) on
+    check_lanes(T),
     lanes 10 and 17 exact; timed, with its bound from the block's own
     rows. Goes into ``kernels[entry]`` where given."""
     from gnss_sdr_tpu_torch.ops import track_kernel as k2
@@ -1027,7 +1092,7 @@ def hold_fused_block(run: str, kname: str, rec, kernels=None,
     o_p = ref["o"].cpu().numpy()
     lanes = check_lanes(T)
     rels = rows_rel_err(f"{kname} on a block of {run}", o_p, o_k, K,
-                        lanes=lanes, first_tol=2e-4)
+                        lanes=lanes, first_tol=first_tol)
     out = torch.empty((C, K, LANES), dtype=torch.float32,
                       device=window.device)
     ms = cuda_ms(lambda: launch(window, codes, scal, pos, spec, out, *tabs),
@@ -1510,14 +1575,16 @@ def galileo_pilot_phase(capture, scen, kernels) -> dict:
 
 
 def three_engines(run: str, plan, capture: np.ndarray, starts: list,
-                  max_settle: int, kernels, suffix: str) -> dict:
+                  max_settle: int, kernels, suffix: str,
+                  tols: dict | None = None) -> dict:
     """The three engines on one capture of a pilot plan: a K1 tracker
     started by ``starts`` (start_channel's arguments, as a run made them)
     runs until its channels lock the secondary (at most ``max_settle``
     blocks), its state goes to an eager (K3) and a K2 tracker, and all
     three run 3 blocks, held to each other by
-    tests/test_fused_receiver.py's _assert_match on the started channels,
-    data-symbol boundaries and counts equal; K2 and K3 against their plain versions on a block
+    tests/test_fused_receiver.py's _assert_match on the started channels
+    (or ``tols``, assert_match's keyword arguments), data-symbol boundaries
+    and counts equal; K2 and K3 against their plain versions on a block
     and a period of those runs (``track_full_<suffix>``,
     ``correlator_<suffix>`` in ``kernels``). Returns the launches of each
     engine (K3, K1, K2)."""
@@ -1578,7 +1645,8 @@ def three_engines(run: str, plan, capture: np.ndarray, starts: list,
             "track_blocked": (0, 3, 0), "track_full": (0, 0, 3)}
     if counts != want:
         raise AssertionError(f"{run}: engine launches {counts}, want {want}")
-    diffs = {f"{a}_vs_{b}": [assert_match(p, q, channels=started)
+    diffs = {f"{a}_vs_{b}": [assert_match(p, q, channels=started,
+                                          **(tols or {}))
                              for p, q in zip(results[a], results[b])]
              for a, b in (("eager", "track_blocked"), ("eager", "track_full"),
                           ("track_blocked", "track_full"))}
@@ -2517,6 +2585,680 @@ def glonass_cli_phase(capture, scen, ref, tmp: Path, kernels) -> dict:
     return runs
 
 
+# ---- BeiDou B1I/B3I, GPS L2C, SBAS L1, Galileo E6B, and mc64 ---------------
+
+# tests/test_beidou_geo.py's GEO case: PRN 3 at 4.092 Msps (2 samples a
+# chip), 32 s (a 30 s D2 page cycle and the pull-in), 46 dB-Hz, 120 Hz,
+# 300 chips of delay, 2 ms D2 bits and no NH code
+GEO_FS = 4.092e6
+GEO_EPH = dict(prn=3, week=810, toc=246400.0, af0=3.1e-4, af1=-1.8e-11,
+               tgd=-4.3e-9, crs=87.3, delta_n=1.2e-9, m0=0.7654,
+               cuc=4.2e-6, ecc=0.0034, cus=7.9e-6, sqrt_a=6493.41,
+               toe=246400.0, cic=-6.1e-8, omega0=-1.93, cis=1.3e-7,
+               i0=0.0971, crc=201.9, omega=0.42, omega_dot=-1.9e-9,
+               idot=2.9e-10)
+GEO_DOPPLER, GEO_DELAY_CHIPS = 120.0, 300.0
+
+
+class GeoSignal:
+    """tests/test_beidou_geo.py's _geo_signal, made a chunk at a time:
+    B1I code chips times 2 ms D2 bits on a carrier at GEO_DOPPLER, with
+    unit noise seeded by the chunk's start."""
+
+    def __init__(self) -> None:
+        from types import SimpleNamespace
+
+        from gnss_sdr_tpu_torch.telemetry.dnav import BeidouEphemeris
+        from gnss_sdr_tpu_torch.telemetry.dnav_d2 import D2Encoder
+
+        self.cfg = SimpleNamespace(fs=GEO_FS, duration_s=32.0)
+        self.enc = D2Encoder(BeidouEphemeris(**GEO_EPH),
+                             {"alpha0": 1.2e-8, "beta0": 94208.0})
+
+    def generate(self, start: int, n: int) -> np.ndarray:
+        from gnss_sdr_tpu_torch.codes.beidou_b1i import beidou_b1i_code
+        from gnss_sdr_tpu_torch.constants import beidou_b1i as BDS
+
+        code = beidou_b1i_code(GEO_EPH["prn"]).astype(np.float64)
+        t = (start + np.arange(n, dtype=np.float64)) / GEO_FS
+        rate = BDS.CODE_RATE_CPS * (1.0 + GEO_DOPPLER / BDS.FREQ_HZ)
+        chip = np.floor(t * rate - GEO_DELAY_CHIPS).astype(np.int64)
+        period = np.floor_divide(chip, BDS.CODE_LENGTH_CHIPS)
+        bit = np.maximum(np.floor_divide(period, 2), 0)
+        lo = int(bit.min())
+        bits = self.enc.bits_at(np.arange(lo, int(bit.max()) + 1))[bit - lo]
+        amp = np.sqrt(10.0 ** 4.6 / GEO_FS)
+        rng = np.random.default_rng((31, start))
+        x = (amp * code[chip % BDS.CODE_LENGTH_CHIPS] * bits
+             * np.exp(2j * np.pi * GEO_DOPPLER * t))
+        x += (rng.normal(scale=np.sqrt(0.5), size=n)
+              + 1j * rng.normal(scale=np.sqrt(0.5), size=n))
+        return x.astype(np.complex64)
+
+
+def plan_signal(plan, n, dops, delays, sec0, seed):
+    """Channels c of ``plan`` (its table rows c) at its rate, at the given
+    Dopplers and code delays (samples), with noise: the code times a random
+    symbol each ``codes_per_bit`` periods on the in-phase axis, and on a
+    BeiDou D1 plan (track_pilot) a random bit each 20 periods times NH20,
+    secondary chip ``sec0[c]`` on the period that starts at the delay."""
+    rng = np.random.default_rng(seed)
+    fs, length = plan.fs, plan.table_length
+    d1 = plan.trk_conf.track_pilot
+    per_sym = 20 if d1 else plan.trk_conf.codes_per_bit
+    tt = np.arange(n) / fs
+    sig = np.zeros(n, np.complex64)
+    for c, (dop, dly, s0) in enumerate(zip(dops, delays, sec0)):
+        u = np.floor((plan.table_rate_cps * (1 + dop / plan.carrier_freq_hz))
+                     * (tt - dly / fs)).astype(np.int64)
+        per = np.floor_divide(u, length)
+        chips = plan.code_table[c][u - per * length]
+        per = per + s0
+        sym_i = np.floor_divide(per, per_sym)
+        sym = np.where(rng.random(int(sym_i.max() - sym_i.min()) + 1) < 0.5,
+                       1.0, -1.0)[sym_i - sym_i.min()]
+        if d1:
+            sym = sym * plan.sec_data_levels[per % 20]
+        sig += (0.35 * chips * sym * np.exp(2j * np.pi * dop * tt + 0.3j * c)
+                ).astype(np.complex64)
+    noise = rng.normal(size=(n, 2)).astype(np.float32) * 0.05
+    return (sig + noise[:, 0] + 1j * noise[:, 1]).astype(np.complex64)
+
+
+def start_plan(plan, K: int, delays, sec0, dev, fused: bool = True):
+    """A tracker of ``plan`` with K periods a block, channel c started at
+    its delay 3 Hz off LONG_DOPS[c] with narrow loops; on a D1 plan past
+    the NH20 lock mid-symbol as Tracker._engage_secondary leaves it (the
+    secondary and 20-period integration at chip ``sec0[c]``, the Costas
+    discriminator kept), else integrating the plan's
+    extend_correlation_symbols periods from a symbol edge."""
+    from gnss_sdr_tpu_torch.tracking.tracker import Tracker
+
+    conf = dataclasses.replace(plan.trk_conf, steps_per_block=K,
+                               fused_tracker=fused)
+    trk = Tracker(conf, plan.code_table, plan.data_code_table,
+                  plan.sec_pilot_table, plan.sec_data_levels, device=dev)
+    C = len(delays)
+    for ch in range(C):
+        trk.start_channel(ch, prn=ch + 1, code_row=ch,
+                          acq_delay_samples=delays[ch],
+                          acq_doppler_hz=LONG_DOPS[ch] + 3.0,
+                          acq_samplestamp=0, current_abs_sample=0)
+    on = torch.ones(C, dtype=torch.bool, device=dev)
+    integ = int(conf.extend_correlation_symbols)
+    st = dict(narrow=on, fll_active=~on,
+              integ_len=torch.full((C,), integ, dtype=torch.int32,
+                                   device=dev))
+    if conf.track_pilot:
+        idx = torch.as_tensor(np.asarray(sec0, np.int32), device=dev)
+        st.update(sec_active=on, use_atan2=~on, integ_count=idx.clone(),
+                  sec_idx=idx.clone())
+    trk.state = trk.state.replace(**st)
+    return trk
+
+
+# phase 26's shapes: name -> (plan function, rate, the two block lengths)
+LAST_SHAPES = {
+    "b1i": ("beidou_b1i_plan", 2.6e6, (20, 200)),
+    "b3i": ("beidou_b3i_plan", 12.5e6, (20, 200)),
+    "l2c": ("gps_l2c_plan", 2.6e6, (4, 40)),
+    "e6b": ("galileo_e6b_plan", 10.23e6, (20, 200)),
+    "sbas": ("sbas_l1_plan", 2.6e6, (20, 200)),
+}
+
+
+def last_plans_kernel_phase(dev) -> None:
+    """Phase 26: K1, K2 and K3 against their plain version at the shapes
+    of the last plans (LAST_SHAPES), C = 8, T = 3, on a signal of each
+    plan's own codes (plan_signal, start_plan): BeiDou B1I (2.6 Msps) and
+    B3I (12.5 Msps) in the D1 mode (pilot code = data code, NH20 on both,
+    the Costas discriminator kept, 20-period integration from counters at
+    (3 + 7c) mod 20, mid-symbol), GPS L2C (2.6 Msps, 52000 samples a
+    20 ms period), Galileo E6B (10.23 Msps) and SBAS (2.6 Msps, 2-period
+    integration). K1 and K2 on one block of K = 20 and 200 (L2C: 4 and 40,
+    80 and 800 ms), held within 5e-5 relative over the first two periods
+    and 2e-3 over the block on check_lanes(3), lanes 10 and 17 exact; K3
+    on one period of the eager engine from the same start, within 2e-3;
+    each timed. Each shape's shared memory a CTA needs (K1 at its launch
+    shape, K2 with the whole period) is printed beside the card's
+    limit."""
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.receiver import plans
+    from gnss_sdr_tpu_torch.tracking.fused import (
+        _pack_scalars,
+        build_fused_engine,
+    )
+
+    C = 8
+    sec0 = [(3 + 7 * c) % 20 for c in range(C)]
+    for name, (make, fs, ks) in LAST_SHAPES.items():
+        plan = getattr(plans, make)(fs, num_channels=C)
+        conf = plan.trk_conf
+        spp = int(round(fs * conf.code_period_s))
+        delays = [37.0 + 0.131 * spp * c for c in range(C)]
+        t0 = time.perf_counter()
+        sig = plan_signal(plan, spp * (max(ks) + 3), LONG_DOPS, delays, sec0,
+                          seed=5)
+        window = torch.as_tensor(sig, device=dev)
+        spec = build_fused_engine(conf)
+        mode = (spec.code_len, spec.n_max, int(spec.interp_code),
+                spec.num_taps, int(spec.track_pilot), int(spec.fdma))
+        r, width = k1.launch_shape(dev, C, spec.n_max,
+                                   "gnss_track_blocked_max_clusters", C,
+                                   *mode)
+        smem_args = (spec.code_len, int(spec.interp_code), spec.num_taps,
+                     int(spec.track_pilot), int(spec.fdma))
+        k1_need, limit = k1.smem_need("gnss_track_blocked_smem", dev,
+                                      *smem_args, width)
+        k2_need, _ = k1.smem_need("gnss_track_full_smem", dev, *smem_args,
+                                  spec.n_max)
+        emit("last_plan_shape", shape=name, plan=make, fs=fs, C=C,
+             n_max=spec.n_max, L=spec.code_len, pilot=spec.track_pilot,
+             k1_cluster_ctas=r, k1_slice=width, k1_smem_bytes=k1_need,
+             k2_smem_bytes=k2_need, smem_limit_bytes=limit,
+             signal_seconds=time.perf_counter() - t0, samples=len(sig))
+        for K in ks:
+            trk = start_plan(plan, K, delays, sec0, dev)
+            st = trk.state.replace(pos=torch.as_tensor(
+                trk.pos_abs.astype(np.int32), device=dev))
+            tabs = tuple(torch.as_tensor(t, device=dev) for t in (
+                trk.data_codes, trk.sec_pilot, trk.sec_data)
+            ) if conf.track_pilot else ()
+            rec = ((window, torch.as_tensor(trk.codes, device=dev),
+                    _pack_scalars(trk.conf, st), st.pos,
+                    build_fused_engine(trk.conf), *tabs), {}, 0)
+            for kname in ("track_blocked", "track_full"):
+                hold_fused_block(f"{name}_K{K}", kname, rec,
+                                 reps=20 if K == ks[0] else 3,
+                                 first_tol=5e-5)
+        trk = start_plan(plan, ks[0], delays, sec0, dev, fused=False)
+        with record_blocks() as rec:
+            trk.process_device(window, 0, window.shape[0])
+        hold_correlator_block(f"{name}_eager", rec["correlator"])
+
+
+def gps_bds_gates(rx, gps, bds) -> tuple[dict, bool]:
+    """tests/test_beidou.py's gates (test_bds_tracking_and_telemetry,
+    test_gps_bds_dual_fix): >= 3 NH20-locked B1I channels, >= 6 D1
+    subframes, >= 3 BDS ephemerides each with sqrt_a within 2^-19 of the
+    truth and toe exact, >= 5 fixes, the last using GPS and BeiDou with an
+    inter-system bias, mean 2D < 2 m and 3D < 5 m over fixes[3:]. Returns
+    the numbers and whether every gate holds."""
+    gb = next(g for g in rx.groups if g.plan.system == "C")
+    locked = sec_locked(gb)
+    d1 = sum(d.subframes_ok for d in gb.decoders.values())
+    eph = {prn: e for (s, prn), e in rx.ephemerides.items() if s == "C"}
+    eph_ok = all(
+        abs(e.sqrt_a - bds.ephs[p].sqrt_a) <= 2.0 ** -19 + 1e-10
+        and abs(e.toe - bds.ephs[p].toe) < 1e-9 for p, e in eph.items())
+    fixes = rx.status.fixes
+    last = fixes[-1] if fixes else None
+    enu = enu_errors(fixes[3:], gps)
+    e = dict(acquired=sorted(f"{s}{p:02d}" for s, p in rx.status.acquired),
+             b1i_prns=gb.channel_prn, b1i_nh20_locked=len(locked),
+             d1_subframes=d1, bds_ephemerides=sorted(eph),
+             bds_eph_fields_ok=eph_ok, fixes=len(fixes),
+             last_fix_systems=sorted({k[0] for k in last.used}) if last
+             else [], isb_m=dict(last.isb_m) if last else {},
+             mean_2d_m=float(np.hypot(enu[:, 0], enu[:, 1]).mean())
+             if len(enu) else math.inf,
+             mean_3d_m=float(np.linalg.norm(enu, axis=1).mean())
+             if len(enu) else math.inf, ttff_s=rx.status.ttff_s)
+    ok = (len(locked) >= 3 and d1 >= 6 and len(eph) >= 3 and eph_ok
+          and len(fixes) >= 5 and e["last_fix_systems"] == ["C", "G"]
+          and bool(e["isb_m"]) and e["mean_2d_m"] < 2.0
+          and e["mean_3d_m"] < 5.0)
+    return e, ok
+
+
+def gps_bds_phase(caps, kernels) -> dict:
+    """Phase 27: tests/test_beidou.py's gps_bds_receiver from Python: GPS
+    L1 C/A and BeiDou B1I (4 channels each, 2.6 Msps, 35 s, seed 1) on K1,
+    fed as the test feeds it (1 s of each band, acquisition until >= 3
+    satellites of each system start), held to the test's gates
+    (gps_bds_gates); K1 against its plain version on a B1I block of the
+    run (``track_blocked_bds``). Then the three engines on the first 4 s
+    of the B1I capture, started as the run started its channels
+    (three_engines past the NH20 lock: eager K3, K1, K2, within phase 24's
+    tolerances: Doppler 0.5 Hz, a median prompt difference of 2e-2, the
+    carrier phase 0.1 rad; ``correlator_bds``). Returns the gates' numbers
+    and the first acquisition."""
+    from gnss_sdr_tpu_torch.ops import correlator as k3
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.receiver.plans import (
+        beidou_b1i_plan,
+        gps_l1ca_plan,
+    )
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+
+    gps, bds = gal_scenario("bds_l1"), gal_scenario("bds_b1")
+    plan = beidou_b1i_plan(fs=FS, num_channels=4, search_prns=tuple(bds.prns))
+    rx = Receiver(ReceiverConfig(fs=FS, num_channels=8), plans=[
+        gps_l1ca_plan(fs=FS, num_channels=4, search_prns=tuple(gps.prns)),
+        plan])
+    trk = rx.groups[1].tracker
+    starts, start = [], trk.start_channel
+
+    def recorded(*a, **kw):
+        starts.append(dict(inspect.signature(start).bind(*a, **kw).arguments))
+        return start(*a, **kw)
+
+    trk.start_channel = recorded
+    blocks = count_blocks(rx)
+    xl, xb, c = caps["bds_l1"], caps["bds_b1"], int(FS)
+    k1.track_blocked.launches = 0
+    k3.correlator.launches = 0
+    acquired, first = False, None
+    with record_blocks() as rec:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(int(gps.cfg.duration_s)):
+            rx.feed(xl[i * c:(i + 1) * c], band="L1")
+            rx.feed(xb[i * c:(i + 1) * c], band="B1")
+            if not acquired:
+                got = rx.acquire()
+                first = got if first is None else first
+                acquired = (len([k for k in got if k[0] == "G"]) >= 3
+                            and len([k for k in got if k[0] == "C"]) >= 3)
+            rx.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    n1, n3 = k1.track_blocked.launches, k3.correlator.launches
+    nb = [b[0] for b in blocks]
+    if not (nb[1] > 0 and n1 == sum(nb) and n3 == 0):
+        raise AssertionError(f"gps_bds: {n1} K1 and {n3} K3 launches for "
+                             f"{nb} blocks")
+    gates, ok = gps_bds_gates(rx, gps, bds)
+    e = dict(gates, first_acquired=sorted(f"{s}{p:02d}" for s, p in first),
+             blocks_l1=nb[0], blocks_b1=nb[1], k1_launches=n1,
+             wall_s=wall, realtime_factor=gps.cfg.duration_s / wall)
+    emit("e2e_gps_bds_35s", **e)
+    if not ok:
+        raise AssertionError(f"gps_bds gates failed: {e}")
+    hold_fused_block("e2e_gps_bds_35s", "track_blocked",
+                     rec[("track_blocked", 2046)], kernels,
+                     "track_blocked_bds")
+    kernels["track_blocked_bds"]["launches"] = nb[1]
+    counts = three_engines(
+        "bds_three_engines", plan, xb[:int(4 * FS)], starts, 150, kernels,
+        "bds", tols=dict(prompt_tol=2e-2, dop_tol=0.5, phase_tol=0.1))
+    kernels["correlator_bds"]["launches"] = counts["eager"][0]
+    return dict(e, first=first)
+
+
+# reference-dialect keys of a two-chain GPS L1 C/A + BeiDou B1I receiver
+# (the reference's Channels_1C + Channels_B1 configuration; phase 28 writes
+# it)
+GPS_BDS_CONF = """[GNSS-SDR]
+GNSS-SDR.internal_fs_sps=2600000
+SignalSource.RF_channels=2
+SignalSource0.implementation=File_Signal_Source
+SignalSource0.filename={l1}
+SignalSource0.item_type=ibyte
+SignalSource0.sampling_frequency=2600000
+SignalSource1.implementation=File_Signal_Source
+SignalSource1.filename={b1}
+SignalSource1.item_type=ibyte
+SignalSource1.sampling_frequency=2600000
+SignalConditioner0.implementation=Signal_Conditioner
+DataTypeAdapter0.implementation=Ibyte_To_Complex
+SignalConditioner1.implementation=Signal_Conditioner
+DataTypeAdapter1.implementation=Ibyte_To_Complex
+Channels_1C.count=4
+Channels_B1.count=4
+Acquisition_1C.implementation=GPS_L1_CA_PCPS_Acquisition
+Acquisition_B1.implementation=BEIDOU_B1I_PCPS_Acquisition
+Tracking_1C.implementation=GPS_L1_CA_DLL_PLL_Tracking
+Tracking_B1.implementation=BEIDOU_B1I_DLL_PLL_Tracking
+TelemetryDecoder_1C.implementation=GPS_L1_CA_Telemetry_Decoder
+TelemetryDecoder_B1.implementation=BEIDOU_B1I_Telemetry_Decoder
+Observables.implementation=Hybrid_Observables
+PVT.implementation=RTKLIB_PVT
+PVT.positioning_mode=Single
+PVT.display_rate_ms=1000
+PVT.kml_dump_filename={tmp}/bds.kml
+PVT.rinex_obs_filename={tmp}/bds.obs
+PVT.rinex_nav_filename={tmp}/bds.nav
+"""
+
+
+def gps_bds_cli_phase(caps, ref: dict, tmp: Path, kernels) -> dict:
+    """Phase 28: the .conf/CLI entry point with GPS_BDS_CONF's two RF
+    chains (Channels_1C on L1, Channels_B1 on B1) on ibyte copies of phase
+    27's captures, through K1 and through K2; each run held to phase 27's
+    gates (gps_bds_gates), and its first acquisition starts the satellites
+    of phase 27's first with Doppler within one bin. Then each kernel against its plain
+    version on a B1I block of its run (K2's as ``track_full_bds``)."""
+    from gnss_sdr_tpu_torch import main as cli
+    from gnss_sdr_tpu_torch.config.configuration import FileConfiguration
+    from gnss_sdr_tpu_torch.io import encode_samples
+    from gnss_sdr_tpu_torch.ops import track_kernel as k2
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver
+    from gnss_sdr_tpu_torch.tracking.tracker import Tracker
+
+    t0 = time.perf_counter()
+    paths = {}
+    for key in ("bds_l1", "bds_b1"):
+        paths[key] = tmp / f"capture_{key}.dat"
+        paths[key].write_bytes(encode_samples(np.round(caps[key] * 16),
+                                              "ibyte"))
+    conf = tmp / "gps_bds.conf"
+    conf.write_text(GPS_BDS_CONF.format(l1=paths["bds_l1"],
+                                        b1=paths["bds_b1"], tmp=tmp))
+    emit("gps_bds_cli_capture", seconds=time.perf_counter() - t0,
+         item_type="ibyte", fs=[FS, FS])
+    gps, bds = gal_scenario("bds_l1"), gal_scenario("bds_b1")
+
+    blocks, made, acquisitions = {}, [], []
+    process, init = Tracker.process_device, Receiver.__init__
+    acquire = Receiver.acquire
+
+    def counted(self, *a):
+        r = process(self, *a)
+        blocks[id(self)] = blocks.get(id(self), 0) + 1
+        return r
+
+    def recorded(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+
+    def acquired(self, *a, **kw):
+        started = acquire(self, *a, **kw)
+        acquisitions.append(started)
+        return started
+
+    runs = {}
+    Tracker.process_device = counted
+    Receiver.__init__ = recorded
+    Receiver.acquire = acquired
+    try:
+        for engine, env in (("track_blocked", None),
+                            ("track_full", "perchannel")):
+            blocks.clear()
+            acquisitions.clear()
+            k1.track_blocked.launches = 0
+            k2.track_full.launches = 0
+            with (fused_engine(env), record_blocks() as rec,
+                  contextlib.redirect_stdout(io.StringIO())):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                cli.run_from_config(FileConfiguration(conf))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            rx = made[-1]
+            nb = [blocks.get(id(g.tracker), 0) for g in rx.groups]
+            n1, n2 = k1.track_blocked.launches, k2.track_full.launches
+            want = {"track_blocked": (sum(nb), 0),
+                    "track_full": (0, sum(nb))}[engine]
+            if not (nb[1] > 0 and (n1, n2) == want):
+                raise AssertionError(
+                    f"gps_bds CLI run ({engine}): {n1} K1 and {n2} K2 "
+                    f"launches for {nb} blocks")
+            first = acquisitions[0]
+            step = max(g.plan.acq_conf.doppler_step_hz for g in rx.groups)
+            dop_diff = max((abs(first[k][0] - ref[k][0]) for k in first
+                            if k in ref), default=0.0)
+            gates, ok = gps_bds_gates(rx, gps, bds)
+            runs[engine] = dict(
+                gates, GNSS_SDR_TPU_FUSED=env,
+                bands=[g.plan.band for g in rx.groups],
+                first_acquired=sorted(f"{s}{p:02d}" for s, p in first),
+                doppler_diff_hz=dop_diff, blocks=nb, k1_launches=n1,
+                k2_launches=n2, wall_s=wall,
+                realtime_factor=gps.cfg.duration_s / wall)
+            emit("gps_bds_cli_run", engine=engine, **runs[engine])
+            if not (ok and set(first) == set(ref) and dop_diff <= step):
+                raise AssertionError(
+                    f"gps_bds CLI run ({engine}) fails its gates or "
+                    f"disagrees with the Python run: {runs[engine]}, Python "
+                    f"{sorted(ref)}")
+            hold_fused_block(f"gps_bds_cli_run {engine}", engine,
+                             rec[(engine, 2046)], kernels,
+                             "track_full_bds" if env else None)
+            if env:
+                kernels["track_full_bds"]["launches"] = nb[1]
+    finally:
+        Tracker.process_device = process
+        Receiver.__init__ = init
+        Receiver.acquire = acquire
+    return runs
+
+
+def geo_phase(capture, kernels) -> dict:
+    """Phase 29: tests/test_beidou_geo.py's B1I GEO case through the
+    port's Tracker on K1: beidou_b1i_geo_plan at 4.092 Msps (2 channels,
+    one started on PRN 3 at its delay, 50 Hz off its Doppler), 32 s of
+    GeoSignal (made in 1 s chunks), the 2 ms bit-synced D2 symbols into
+    D2Decoder as the test feeds them; held to the test's gates: the
+    channel NARROW at the end, > 30 D2 subframes, a complete ephemeris with
+    sqrt_a within 1e-3, m0 within 1e-8, af0 within 2^-32 and week 810. K1
+    against its plain version on a block of the run
+    (``track_blocked_geo``)."""
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.receiver.plans import beidou_b1i_geo_plan
+    from gnss_sdr_tpu_torch.telemetry.dnav_d2 import D2Decoder
+    from gnss_sdr_tpu_torch.tracking.tracker import ChannelPhase, Tracker
+
+    plan = beidou_b1i_geo_plan(GEO_FS, num_channels=2)
+    conf = plan.trk_conf
+    sps = GEO_FS / 2.046e6
+    trk = Tracker(conf, plan.code_table, device="cuda")
+    trk.start_channel(ch=0, prn=3, code_row=2,
+                      acq_delay_samples=GEO_DELAY_CHIPS * sps,
+                      acq_doppler_hz=GEO_DOPPLER - 50.0,
+                      acq_samplestamp=0, current_abs_sample=0)
+    dec = D2Decoder(prn=3)
+    events, nblocks, num = [], 0, len(capture)
+    k1.track_blocked.launches = 0
+    with record_blocks() as rec:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        while True:
+            base, w = trk.window_request()
+            if base + w > num:
+                break
+            r = trk.process(capture[base:base + w], base)
+            nblocks += 1
+            out = r.outputs
+            full = out["boundary"][:, 0] & (
+                out["acc_samples"][:, 0] > conf.samples_per_code * 1.5)
+            if full.any() and trk.ctl[0].phase == ChannelPhase.NARROW:
+                events += dec.push_symbols(
+                    np.sign(out["acc_prompt"][full, 0].real),
+                    r.abs_sample_end[full, 0])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    n1 = k1.track_blocked.launches
+    if not (nblocks > 0 and n1 == nblocks):
+        raise AssertionError(f"GEO: {n1} K1 launches for {nblocks} blocks")
+    got, want = dec.eph, GEO_EPH
+    e = dict(channel_phase=trk.ctl[0].phase.name,
+             subframes_ok=dec.subframes_ok,
+             subframes_bad=dec.subframes_bad,
+             ephemeris_complete=any(ev["ephemeris_complete"]
+                                    for ev in events),
+             sqrt_a_err=abs(got.sqrt_a - want["sqrt_a"]),
+             m0_err=abs(got.m0 - want["m0"]),
+             af0_err=abs(got.af0 - want["af0"]), week=got.week,
+             blocks=nblocks, k1_launches=n1, wall_s=wall,
+             realtime_factor=num / GEO_FS / wall)
+    emit("geo_b1i_d2_32s", **e)
+    if not (e["channel_phase"] == "NARROW" and e["subframes_ok"] > 30
+            and e["ephemeris_complete"] and e["sqrt_a_err"] < 1e-3
+            and e["m0_err"] < 1e-8 and e["af0_err"] < 2.0 ** -32
+            and e["week"] == 810):
+        raise AssertionError(f"GEO gates failed: {e}")
+    hold_fused_block("geo_b1i_d2_32s", "track_blocked", rec["track_blocked"],
+                     kernels, "track_blocked_geo")
+    kernels["track_blocked_geo"]["launches"] = n1
+    return e
+
+
+# phase 30's cases: name -> (plan function, plan keywords, PRN, Doppler Hz,
+# delay in chips, C/N0 dB-Hz, Doppler and delay (samples) tolerances):
+# tests/test_e6.py::test_e6_acquisition's, tests/test_sbas_qzss.py::
+# test_sbas_l1_acquisition's, and one L2C (two-step zoom) and one B3I
+# signal
+ACQ_CASES = {
+    "e6b": ("galileo_e6b_plan", dict(fs=10.23e6, doppler_max_hz=3000.0,
+                                     doppler_step_hz=500.0),
+            11, 1200.0, 1000.5, 47.0, 250.0, 2.0),
+    "sbas": ("sbas_l1_plan", dict(fs=2.046e6), 131, -300.0, 700.5, 46.0,
+             125.0, 1.5),
+    "l2c": ("gps_l2c_plan", dict(fs=2.6e6), 5, 2217.0, 3100.25, 44.0, 8.0,
+            1.5),
+    "b3i": ("beidou_b3i_plan", dict(fs=12.5e6), 14, -1060.0, 4321.5, 47.0,
+            250.0, 1.5),
+}
+
+
+def last_plans_acquisition_phase() -> dict:
+    """Phase 30: PCPS on the card (torch.fft) for Galileo E6B, SBAS, GPS
+    L2C with its two-step Doppler zoom, and BeiDou B3I, each on one
+    satellite of its own code (ACQ_CASES) searched over the plan's whole
+    grid: detected, with Doppler and delay inside the tolerances of the
+    tests the cases come from (L2C: one fine bin of 8 Hz; B3I: one bin of
+    250 Hz)."""
+    from gnss_sdr_tpu_torch.acquisition import PcpsAcquisition
+    from gnss_sdr_tpu_torch.receiver import plans
+
+    out = {}
+    for name, (make, kw, prn, dop, delay, cn0, dtol, stol) in (
+            ACQ_CASES.items()):
+        plan = getattr(plans, make)(**kw)
+        conf = plan.acq_conf
+        table = (plan.acq_code_table if plan.acq_code_table is not None
+                 else plan.code_table)
+        row = plan.prn_row(prn)
+        rng = np.random.default_rng(4)
+        n = conf.input_samples
+        t = np.arange(n) / conf.fs
+        chip = np.floor((t - delay / conf.code_rate_cps)
+                        * conf.code_rate_cps).astype(np.int64)
+        x = np.sqrt(10 ** (cn0 / 10) / conf.fs) * table[row][
+            chip % conf.code_length_chips] * np.exp(2j * np.pi * dop * t)
+        x = (x + rng.normal(scale=np.sqrt(0.5), size=n) + 1j * rng.normal(
+            scale=np.sqrt(0.5), size=n)).astype(np.complex64)
+        eng = PcpsAcquisition(conf, table, list(plan.search_prns),
+                              device="cuda")
+        t0 = time.perf_counter()
+        res = eng.acquire(x[None], np.array([row]))
+        torch.cuda.synchronize()
+        sps = conf.fs / conf.code_rate_cps
+        out[name] = dict(
+            prn=prn, detected=bool(res.detected[0]),
+            doppler_hz=float(res.doppler_hz[0]), truth_doppler_hz=dop,
+            delay_samples=float(res.delay_samples[0]),
+            truth_delay_samples=delay * sps,
+            two_step=bool(conf.make_two_steps), seconds=time.perf_counter()
+            - t0)
+        if not (res.detected[0] and abs(res.doppler_hz[0] - dop) <= dtol
+                and abs(res.delay_samples[0] - delay * sps) <= stol):
+            raise AssertionError(f"{name} acquisition: {out[name]}")
+    emit("last_plans_acquisition", cases=out)
+    return out
+
+
+def mc64_gates(first: dict, rx) -> tuple[dict, bool]:
+    """mc64's first acquisition per system against its scenario: only PRNs
+    in view (a GLONASS slot's antipodal twin counts as the slot: they share
+    a frequency channel, and GNAV re-keys it later), at least min(4, in
+    view) of them, each with Doppler within one bin of the truth."""
+    from gnss_sdr_tpu_torch.constants.glonass_l1 import SLOT_TO_K
+
+    scens = {"G": gal_scenario("mc64_gps"), "E": gal_scenario("mc64_gal"),
+             "R": gal_scenario("mc64_glo"), "C": gal_scenario("mc64_bds")}
+    steps = {g.plan.system: g.plan.acq_conf.doppler_step_hz
+             for g in rx.groups}
+    e, ok = {}, True
+    for sysid, scen in scens.items():
+        truth = {p: scen.truth_at(p, 0.0)["doppler_hz"] for p in scen.prns}
+        if sysid == "R":
+            truth.update({s: truth[p] for p in list(truth)
+                          for s in SLOT_TO_K
+                          if SLOT_TO_K[s] == SLOT_TO_K[p]})
+        got = {p: d for (s, p), (d, _) in first.items() if s == sysid}
+        err = {p: abs(d - truth[p]) for p, d in got.items() if p in truth}
+        e[sysid] = dict(in_view=sorted(scen.prns), acquired=sorted(got),
+                        doppler_err_hz=max(err.values(), default=0.0),
+                        bin_hz=steps[sysid])
+        ok = ok and (set(got) <= set(truth)
+                     and len(got) >= min(4, len(scen.prns))
+                     and all(v <= steps[sysid] for v in err.values()))
+    return e, ok
+
+
+def mc64_phase(caps, kernels) -> dict:
+    """Phase 31: bench.py's mc64 from the port's plans: GPS L1 C/A (1000
+    periods a block) and Galileo E1-B (250) on a shared L1 at 4 Msps,
+    GLONASS L1 C/A (1000) at 3.6 Msps, BeiDou B1I (1000) at 2.6 Msps, 16
+    channels each, ``ReceiverConfig(fs=4e6, num_channels=16,
+    int8_stream=True)``, on its 6 s captures, driven as bench.py's _run_e2e
+    drives it (1 s feeds of each band, one acquisition, the factor over
+    the 4 s after a 2 s warm-up). Gates: the run reaches its end, and
+    mc64_gates on its first acquisition. K1 against its plain version on
+    one block of each group (``track_blocked_mc64_<group>``)."""
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.receiver import plans as P
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+
+    fs1, fsg, fsb = MC64_FS["L1"], MC64_FS["G1"], MC64_FS["B1"]
+    rx = Receiver(ReceiverConfig(fs=fs1, num_channels=16, int8_stream=True),
+                  plans=[
+                      P.gps_l1ca_plan(fs=fs1, num_channels=16,
+                                      steps_per_block=1000),
+                      P.galileo_e1b_plan(fs=fs1, num_channels=16,
+                                         steps_per_block=250),
+                      P.glonass_l1_ca_plan(fs=fsg, num_channels=16,
+                                           steps_per_block=1000),
+                      P.beidou_b1i_plan(fs=fsb, num_channels=16,
+                                        steps_per_block=1000)])
+    blocks = count_blocks(rx)
+    feeds = {"L1": (caps["mc64_l1"], int(fs1)),
+             "G1": (caps["mc64_g1"], int(fsg)),
+             "B1": (caps["mc64_b1"], int(fsb))}
+    dur, warm = 6, 2
+    k1.track_blocked.launches = 0
+    with record_blocks() as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(dur):
+            if i == warm:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+            for band, (x, c) in feeds.items():
+                rx.feed(x[i * c:(i + 1) * c], band=band)
+            if i == 0:
+                first = rx.acquire()
+            rx.run()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    nb = [b[0] for b in blocks]
+    n1 = k1.track_blocked.launches
+    if not (all(nb) and n1 == sum(nb)):
+        raise AssertionError(f"mc64: {n1} K1 launches for {nb} blocks")
+    gates, ok = mc64_gates(first, rx)
+    e = dict(steps_per_block=[g.plan.trk_conf.steps_per_block
+                              for g in rx.groups], int8_stream=True,
+             blocks=nb, k1_launches=n1, first_acquisition=gates,
+             active=[len(g.active_channels()) for g in rx.groups],
+             b1i_nh20_locked=len(sec_locked(rx.groups[3])),
+             wall_s=t2 - t0, realtime_factor=dur / (t2 - t0),
+             bench_realtime_factor=(dur - warm) / (t2 - t1))
+    emit("e2e_mc64_6s_bench_settings", **e)
+    if not ok:
+        raise AssertionError(f"mc64 acquisition gates failed: {gates}")
+    for g, n in zip(rx.groups, nb):
+        entry = f"track_blocked_mc64_{g.plan.name.lower()}"
+        hold_fused_block("e2e_mc64_6s_bench_settings", "track_blocked",
+                         rec[("track_blocked", g.plan.table_length)],
+                         kernels, entry, reps=3)
+        kernels[entry]["launches"] = n
+    return e
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2747,7 +3489,26 @@ def main() -> int:
         glonass_cli_phase(gal_caps["glo"], gal_scenario("glo"), glo["first"],
                           Path(tmp), kernels)
 
-    # ---- 26. kernels -----------------------------------------------------
+    # ---- 26. K1, K2 and K3 at the last plans' shapes ---------------------
+    last_plans_kernel_phase(dev)
+
+    # ---- 27. GPS L1 + BeiDou B1I from Python (K1); three engines on B1I --
+    bds = gps_bds_phase(gal_caps, kernels)
+
+    # ---- 28. GPS L1 + BeiDou B1I through the CLI, K1 and K2 --------------
+    with tempfile.TemporaryDirectory() as tmp:
+        gps_bds_cli_phase(gal_caps, bds["first"], Path(tmp), kernels)
+
+    # ---- 29. BeiDou B1I GEO (D2) through the Tracker (K1) ----------------
+    geo_phase(gal_caps["geo"], kernels)
+
+    # ---- 30. acquisition of E6B, SBAS, L2C and B3I ------------------------
+    last_plans_acquisition_phase()
+
+    # ---- 31. mc64 at bench.py's settings ---------------------------------
+    mc64_phase(gal_caps, kernels)
+
+    # ---- 32. kernels -----------------------------------------------------
     meta = {
         "track_blocked": dict(
             route="cuda", source="gnss_sdr_tpu_torch/csrc/track_blocked.cu",
@@ -2778,6 +3539,10 @@ def main() -> int:
     meta["track_blocked_glo"] = meta["track_blocked"]
     meta["track_full_glo"] = meta["track_full"]
     meta["correlator_glo"] = meta["correlator"]
+    for case in ("bds", "geo", "mc64_1c", "mc64_1b", "mc64_1g", "mc64_b1"):
+        meta[f"track_blocked_{case}"] = meta["track_blocked"]
+    meta["track_full_bds"] = meta["track_full"]
+    meta["correlator_bds"] = meta["correlator"]
     for n in meta:
         if not kernels[n].get("launches"):
             raise AssertionError(f"{n}: no launch on its path")

@@ -1,6 +1,7 @@
-"""gnss_sdr_tpu_torch — the GPS L1 C/A and L5, QZSS L1 C/A and L5, Galileo
-E1, E5a and E5b, and GLONASS L1 and L2 C/A (FDMA) receiver of
-``gnss_sdr_tpu`` on PyTorch and CUDA, on one band or two, from Python or
+"""gnss_sdr_tpu_torch — the GPS L1 C/A, L2C and L5, QZSS L1 C/A and L5,
+SBAS L1, Galileo E1, E5a, E5b and E6B, GLONASS L1 and L2 C/A (FDMA) and
+BeiDou B1I and B3I (D1 and GEO D2) receiver of ``gnss_sdr_tpu`` on
+PyTorch and CUDA, on one band or several, from Python or
 from a ``.conf`` file (``python -m gnss_sdr_tpu_torch.main -c
 <file.conf>``).
 

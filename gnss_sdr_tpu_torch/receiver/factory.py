@@ -1,11 +1,10 @@
 """String-keyed block factory: reference config strings -> framework objects.
 
 Counterpart of ``gnss_sdr_tpu/receiver/factory.py``, with the same
-implementation-string tables, property names and defaults. What the port
-does not carry yet raises ``NotImplementedError`` naming its ROADMAP queue
-item: plans that ``receiver/plans.py`` lacks (every signal but GPS L1 C/A
-and L5, Galileo E1 and Galileo E5a),
-the SignalGenerator source, and the beamformer; the conditioner raises for
+implementation-string tables, property names and defaults; every
+``Channels_XX`` group builds its plan. What the port does not carry yet
+raises ``NotImplementedError`` naming its ROADMAP queue item: the
+SignalGenerator source and the beamformer; the conditioner raises for
 its filters and resamplers, and the receiver for acquisition and tracking
 variants other than PCPS and DLL/PLL. The conditioner runs on ``device``
 ("cuda" unless the caller asks for "cpu").
@@ -67,10 +66,6 @@ _ITEM_TYPE_MAP = {
 
 class UnknownImplementation(ValueError):
     pass
-
-
-# the ROADMAP queue item that ports the plans receiver/plans.py lacks
-_LATER_PLANS_ITEM = 10
 
 
 # ------------------------------------------------------------- signal source
@@ -587,11 +582,7 @@ def get_signal_plan(cfg: ConfigurationInterface, sig: str, fs: float,
         raise UnknownImplementation(
             f"TelemetryDecoder_{sig}.implementation={tlm_impl!r}")
 
-    make = getattr(plan_mod, factory_name, None)
-    if make is None:
-        raise NotImplementedError(
-            f"Channels_{sig}: {factory_name} is not ported yet (ROADMAP "
-            f"queue item {_LATER_PLANS_ITEM})")
+    make = getattr(plan_mod, factory_name)
     kwargs = dict(fs=fs, num_channels=num_channels)
 
     def opt(key: str, prop: str, typed_default):

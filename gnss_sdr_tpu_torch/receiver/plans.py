@@ -1,11 +1,12 @@
 """Signal plans: everything the receiver needs to run one signal type.
 
-Counterpart of ``gnss_sdr_tpu/receiver/plans.py`` (``SignalPlan``,
-``gps_l1ca_plan``, ``qzss_l1_ca_plan``, ``galileo_e1b_plan``,
-``galileo_e1bc_plan``, ``gps_l5_plan``, ``qzss_l5_plan``,
-``galileo_e5a_plan``, ``galileo_e5b_plan``, ``glonass_l1_ca_plan`` and
-``glonass_l2_ca_plan``; BeiDou, SBAS, L2C and E6B are not ported yet,
-ROADMAP queue item 10). A plan bundles
+Counterpart of ``gnss_sdr_tpu/receiver/plans.py``, every plan of it:
+``SignalPlan``, ``gps_l1ca_plan``, ``qzss_l1_ca_plan``, ``sbas_l1_plan``,
+``gps_l2c_plan``, ``galileo_e1b_plan``, ``galileo_e1bc_plan``,
+``gps_l5_plan``, ``qzss_l5_plan``, ``galileo_e5a_plan``,
+``galileo_e5b_plan``, ``galileo_e6b_plan``, ``glonass_l1_ca_plan``,
+``glonass_l2_ca_plan``, ``beidou_b1i_plan``, ``beidou_b1i_geo_plan``,
+``beidou_b3i_plan`` and ``beidou_b3i_geo_plan``. A plan bundles
 the per-signal pieces the reference spreads across an adapter triple
 (Acq/Trk/Tlm) plus the code tables: the engines are built per plan, and
 the channels of a plan are one batch on the device. BOC signals use
@@ -22,6 +23,9 @@ from typing import Callable
 import numpy as np
 
 from gnss_sdr_tpu_torch.acquisition import AcqConfig
+from gnss_sdr_tpu_torch.codes.beidou_b1i import beidou_b1i_code_table
+from gnss_sdr_tpu_torch.codes.beidou_b1i import nh20_levels as bds_nh20_levels
+from gnss_sdr_tpu_torch.codes.beidou_b3i import beidou_b3i_code_table
 from gnss_sdr_tpu_torch.codes.galileo_e1 import (
     SINBOC_TABLE_LENGTH,
     SINBOC_TABLE_RATE_CPS,
@@ -41,6 +45,7 @@ from gnss_sdr_tpu_torch.codes.galileo_e5b import (
     galileo_e5bi_code_table,
     galileo_e5bq_code_table,
 )
+from gnss_sdr_tpu_torch.codes.galileo_e6 import galileo_e6b_code_table
 from gnss_sdr_tpu_torch.codes.glonass_ca import (
     glonass_ca_code_table,
     slot_freq_offsets_hz,
@@ -49,6 +54,7 @@ from gnss_sdr_tpu_torch.codes.gps_l1_ca import (
     gps_l1_ca_code,
     gps_l1_ca_code_table,
 )
+from gnss_sdr_tpu_torch.codes.gps_l2c import gps_l2cm_code_table
 from gnss_sdr_tpu_torch.codes.gps_l5 import (
     gps_l5i_code_table,
     gps_l5q_code_table,
@@ -57,17 +63,25 @@ from gnss_sdr_tpu_torch.codes.gps_l5 import (
     qzss_l5i_code,
     qzss_l5q_code,
 )
+from gnss_sdr_tpu_torch.constants import beidou_b1i as BDS
+from gnss_sdr_tpu_torch.constants import beidou_b3i as B3
 from gnss_sdr_tpu_torch.constants import galileo_e1 as GAL
 from gnss_sdr_tpu_torch.constants import galileo_e5a as E5A
 from gnss_sdr_tpu_torch.constants import galileo_e5b as E5B
+from gnss_sdr_tpu_torch.constants import galileo_e6 as E6
 from gnss_sdr_tpu_torch.constants import glonass_l1 as GLO
 from gnss_sdr_tpu_torch.constants import gps_l1_ca as GPS
+from gnss_sdr_tpu_torch.constants import gps_l2c as L2C
 from gnss_sdr_tpu_torch.constants import gps_l5 as L5
 from gnss_sdr_tpu_torch.telemetry.cnav import CnavDecoder
+from gnss_sdr_tpu_torch.telemetry.dnav import D1Decoder
+from gnss_sdr_tpu_torch.telemetry.dnav_d2 import D2Decoder
 from gnss_sdr_tpu_torch.telemetry.fnav import FnavDecoder
 from gnss_sdr_tpu_torch.telemetry.gnav import GnavDecoder
+from gnss_sdr_tpu_torch.telemetry.hascnav import CnavStreamDecoder
 from gnss_sdr_tpu_torch.telemetry.inav import InavDecoder
 from gnss_sdr_tpu_torch.telemetry.lnav import LnavDecoder
+from gnss_sdr_tpu_torch.telemetry.sbas import SbasDecoder
 from gnss_sdr_tpu_torch.tracking import DllPllConf
 
 
@@ -814,3 +828,441 @@ def glonass_l2_ca_plan(
     )
     plan.trk_conf = replace(plan.trk_conf, carrier_freq_hz=1.246e9)
     return plan
+
+
+def sbas_l1_plan(
+    fs: float,
+    num_channels: int = 2,
+    doppler_max_hz: float = 5000.0,
+    doppler_step_hz: float = 250.0,
+    acq_dwells: int = 2,
+    acq_pfa: float = 1e-3,
+    pll_bw_hz: float = 30.0,
+    dll_bw_hz: float = 2.0,
+    pll_bw_narrow_hz: float = 7.5,
+    dll_bw_narrow_hz: float = 0.75,
+    enable_fll_pull_in: bool = True,
+    fll_bw_hz: float = 4.0,
+    pull_in_time_s: float = 0.25,
+    search_prns: tuple = tuple(range(120, 139)),
+    steps_per_block: int | None = None,
+) -> SignalPlan:
+    """SBAS L1 (reference SBAS_L1_* adapters): C/A-family codes of PRN
+    120-138, 500 symbols/s (two code periods a symbol), 250 bps messages
+    with FEC. GEO satellites sit near zero Doppler; the telemetry events
+    carry integrity and correction messages, not ephemerides."""
+    table = np.stack(
+        [gps_l1_ca_code(p) for p in range(120, 139)]
+    ).astype(np.float32)
+    return SignalPlan(
+        name="1S",
+        system="S",
+        band="L1",
+        num_channels=num_channels,
+        code_table=table,
+        table_rate_cps=GPS.CODE_RATE_CPS,
+        carrier_freq_hz=GPS.FREQ_HZ,
+        code_period_s=GPS.CODE_PERIOD_S,
+        acq_conf=AcqConfig(
+            fs=fs,
+            code_length_chips=GPS.CODE_LENGTH_CHIPS,
+            code_rate_cps=GPS.CODE_RATE_CPS,
+            doppler_max_hz=doppler_max_hz,
+            doppler_step_hz=doppler_step_hz,
+            max_dwells=acq_dwells,
+            # symbols flip every 2 ms: keep one clean period per FFT
+            bit_transition_flag=True,
+            pfa=acq_pfa,
+        ),
+        trk_conf=DllPllConf(
+            fs=fs,
+            code_length_chips=GPS.CODE_LENGTH_CHIPS,
+            code_rate_cps=GPS.CODE_RATE_CPS,
+            carrier_freq_hz=GPS.FREQ_HZ,
+            pll_bw_hz=pll_bw_hz,
+            dll_bw_hz=dll_bw_hz,
+            pll_bw_narrow_hz=pll_bw_narrow_hz,
+            dll_bw_narrow_hz=dll_bw_narrow_hz,
+            enable_fll_pull_in=enable_fll_pull_in,
+            fll_bw_hz=fll_bw_hz,
+            pull_in_time_s=pull_in_time_s,
+            extend_correlation_symbols=2,    # one 2 ms symbol
+            codes_per_bit=2,
+            steps_per_block=steps_per_block or 20,
+            max_channels=num_channels,
+        ),
+        make_decoder=SbasDecoder,
+        search_prns=search_prns,
+        prn_row=lambda prn: prn - 120,
+    )
+
+
+def gps_l2c_plan(
+    fs: float,
+    num_channels: int = 8,
+    doppler_max_hz: float = 4000.0,
+    doppler_step_hz: float = 60.0,
+    acq_dwells: int = 1,
+    acq_pfa: float = 1e-3,
+    pll_bw_hz: float = 2.0,
+    dll_bw_hz: float = 0.5,
+    pll_bw_narrow_hz: float = 1.5,
+    dll_bw_narrow_hz: float = 0.25,
+    enable_fll_pull_in: bool = True,
+    fll_bw_hz: float = 2.0,
+    pull_in_time_s: float = 1.0,
+    extend_correlation_symbols: int = 1,   # CNAV flips every CM period
+    search_prns: tuple = tuple(range(1, 33)),
+    steps_per_block: int | None = None,
+) -> SignalPlan:
+    """GPS L2C, CM-only replica (reference adapters
+    GPS_L2_M_PCPS_Acquisition / GPS_L2_M_DLL_PLL_Tracking /
+    GPS_L2C_Telemetry_Decoder; code gps_l2c_signal_replica.cc).
+
+    The 20 ms CM period is one 50 symbols/s CNAV symbol, so tracking
+    integrates one period (the symbol sign may flip at every period
+    boundary) and telemetry takes every period's prompt sign. The long
+    period narrows the Doppler bins: 60 Hz with the double-length FFT, the
+    reference adapter's default, then the two-step zoom."""
+    return SignalPlan(
+        name="2S",
+        system="G",
+        band="L2",
+        num_channels=num_channels,
+        code_table=gps_l2cm_code_table(),
+        table_rate_cps=L2C.CODE_RATE_CPS,
+        carrier_freq_hz=L2C.FREQ_HZ,
+        code_period_s=L2C.CODE_PERIOD_S,
+        acq_conf=AcqConfig(
+            fs=fs,
+            code_length_chips=L2C.CODE_LENGTH_CHIPS,
+            code_rate_cps=L2C.CODE_RATE_CPS,
+            doppler_max_hz=doppler_max_hz,
+            doppler_step_hz=doppler_step_hz,
+            max_dwells=acq_dwells,
+            bit_transition_flag=True,
+            pfa=acq_pfa,
+            # data-only BPSK at 50 symbols/s has FLL/Costas false locks
+            # every 25 Hz; the two-step zoom hands tracking a Doppler
+            # inside the +-12.5 Hz true basin (reference make_2_steps)
+            make_two_steps=True,
+            doppler_step2_hz=8.0,
+            num_doppler_bins_step2=6,
+        ),
+        trk_conf=DllPllConf(
+            fs=fs,
+            code_length_chips=L2C.CODE_LENGTH_CHIPS,
+            code_rate_cps=L2C.CODE_RATE_CPS,
+            carrier_freq_hz=L2C.FREQ_HZ,
+            pll_bw_hz=pll_bw_hz,
+            dll_bw_hz=dll_bw_hz,
+            pll_bw_narrow_hz=pll_bw_narrow_hz,
+            dll_bw_narrow_hz=dll_bw_narrow_hz,
+            enable_fll_pull_in=enable_fll_pull_in,
+            fll_bw_hz=fll_bw_hz,
+            pull_in_time_s=pull_in_time_s,
+            extend_correlation_symbols=1,
+            codes_per_bit=L2C.CODES_PER_SYMBOL,
+            steps_per_block=steps_per_block or 4,   # 4 x 20 ms a call
+            max_channels=num_channels,
+        ),
+        make_decoder=CnavDecoder,
+        search_prns=search_prns,
+    )
+
+
+def galileo_e6b_plan(
+    fs: float,
+    num_channels: int = 4,
+    doppler_max_hz: float = 5000.0,
+    doppler_step_hz: float = 250.0,
+    acq_pfa: float = 1e-3,
+    pll_bw_hz: float = 20.0,
+    dll_bw_hz: float = 2.0,
+    pll_bw_narrow_hz: float = 7.5,
+    dll_bw_narrow_hz: float = 0.75,
+    enable_fll_pull_in: bool = True,
+    fll_bw_hz: float = 4.0,
+    pull_in_time_s: float = 0.25,
+    search_prns: tuple = tuple(range(1, 37)),
+    steps_per_block: int | None = None,
+) -> SignalPlan:
+    """Galileo E6-B data channel (HAS/CNAV; reference adapters
+    Galileo_E6_PCPS_Acquisition / Galileo_E6_DLL_PLL_Tracking /
+    Galileo_E6_Telemetry_Decoder). BPSK(5) at 5.115 Mcps, one 1 ms code
+    period per 1000 symbols/s CNAV symbol: symbol-rate handling as E1-B
+    (one period of integration, a timer for the narrow switch)."""
+    return SignalPlan(
+        name="E6",
+        system="E",
+        band="E6",
+        num_channels=num_channels,
+        code_table=galileo_e6b_code_table(),
+        table_rate_cps=E6.CODE_RATE_CPS,
+        carrier_freq_hz=E6.FREQ_HZ,
+        code_period_s=E6.CODE_PERIOD_S,
+        acq_conf=AcqConfig(
+            fs=fs,
+            code_length_chips=E6.CODE_LENGTH_CHIPS,
+            code_rate_cps=E6.CODE_RATE_CPS,
+            doppler_max_hz=doppler_max_hz,
+            doppler_step_hz=doppler_step_hz,
+            max_dwells=1,
+            # CNAV symbols flip every period
+            bit_transition_flag=True,
+            pfa=acq_pfa,
+        ),
+        trk_conf=DllPllConf(
+            fs=fs,
+            code_length_chips=E6.CODE_LENGTH_CHIPS,
+            code_rate_cps=E6.CODE_RATE_CPS,
+            carrier_freq_hz=E6.FREQ_HZ,
+            pll_bw_hz=pll_bw_hz,
+            dll_bw_hz=dll_bw_hz,
+            pll_bw_narrow_hz=pll_bw_narrow_hz,
+            dll_bw_narrow_hz=dll_bw_narrow_hz,
+            enable_fll_pull_in=enable_fll_pull_in,
+            fll_bw_hz=fll_bw_hz,
+            pull_in_time_s=pull_in_time_s,
+            extend_correlation_symbols=1,
+            codes_per_bit=1,
+            steps_per_block=steps_per_block or 20,
+            max_channels=num_channels,
+        ),
+        make_decoder=CnavStreamDecoder,
+        search_prns=search_prns,
+    )
+
+
+def _beidou_d1_plan(name: str, band: str, table: np.ndarray, consts,
+                    fs: float, num_channels: int, doppler_max_hz: float,
+                    doppler_step_hz: float, acq_dwells: int, acq_pfa: float,
+                    pll_bw_hz: float, dll_bw_hz: float,
+                    pll_bw_narrow_hz: float, dll_bw_narrow_hz: float,
+                    enable_fll_pull_in: bool, fll_bw_hz: float,
+                    pull_in_time_s: float, extend_correlation_symbols: int,
+                    search_prns: tuple,
+                    steps_per_block: int | None) -> SignalPlan:
+    """A BeiDou MEO/IGSO plan (D1 NAV with the NH20 secondary on the one
+    data component). The engines' secondary machinery runs with the pilot
+    code equal to the data code, the Costas PLL kept after the lock
+    (pilot_pll_atan2=False: the navigation bits still flip the carrier),
+    and coherent integration aligned to, and capped at, one 20 ms bit."""
+    nh = np.tile(bds_nh20_levels(), (table.shape[0], 1))
+    extend = min(extend_correlation_symbols, consts.CODES_PER_BIT)
+    return SignalPlan(
+        name=name,
+        system="C",
+        band=band,
+        num_channels=num_channels,
+        code_table=table,
+        table_rate_cps=consts.CODE_RATE_CPS,
+        carrier_freq_hz=consts.FREQ_HZ,
+        code_period_s=consts.CODE_PERIOD_S,
+        acq_conf=AcqConfig(
+            fs=fs,
+            code_length_chips=consts.CODE_LENGTH_CHIPS,
+            code_rate_cps=consts.CODE_RATE_CPS,
+            doppler_max_hz=doppler_max_hz,
+            doppler_step_hz=doppler_step_hz,
+            max_dwells=acq_dwells,
+            # NH chips flip the sign at any code boundary inside the
+            # window; the double-length FFT keeps one clean period
+            bit_transition_flag=True,
+            pfa=acq_pfa,
+        ),
+        trk_conf=DllPllConf(
+            fs=fs,
+            code_length_chips=consts.CODE_LENGTH_CHIPS,
+            code_rate_cps=consts.CODE_RATE_CPS,
+            carrier_freq_hz=consts.FREQ_HZ,
+            pll_bw_hz=pll_bw_hz,
+            dll_bw_hz=dll_bw_hz,
+            pll_bw_narrow_hz=pll_bw_narrow_hz,
+            dll_bw_narrow_hz=dll_bw_narrow_hz,
+            enable_fll_pull_in=enable_fll_pull_in,
+            fll_bw_hz=fll_bw_hz,
+            pull_in_time_s=pull_in_time_s,
+            extend_correlation_symbols=extend,
+            codes_per_bit=consts.CODES_PER_BIT,
+            track_pilot=True,
+            sec_len_pilot=20,
+            sec_len_data=20,
+            pilot_pll_atan2=False,
+            data_on_quadrature=False,
+            steps_per_block=steps_per_block or 20,
+            max_channels=num_channels,
+        ),
+        make_decoder=D1Decoder,
+        search_prns=search_prns,
+        data_code_table=table,
+        sec_pilot_table=nh,
+        sec_data_levels=bds_nh20_levels(),
+        acq_code_table=table,
+    )
+
+
+def _beidou_d2_plan(name: str, band: str, table: np.ndarray, consts,
+                    fs: float, num_channels: int, doppler_max_hz: float,
+                    doppler_step_hz: float, acq_dwells: int, acq_pfa: float,
+                    pll_bw_hz: float, dll_bw_hz: float,
+                    pll_bw_narrow_hz: float, dll_bw_narrow_hz: float,
+                    enable_fll_pull_in: bool, fll_bw_hz: float,
+                    pull_in_time_s: float, search_prns: tuple,
+                    steps_per_block: int | None) -> SignalPlan:
+    """A BeiDou GEO plan (D2 NAV at 500 bps, no NH secondary): plain
+    Costas tracking with 2 ms bits (codes_per_bit=2), bit-synced 2-period
+    integration and the D2 paged decoder."""
+    return SignalPlan(
+        name=name,
+        system="C",
+        band=band,
+        num_channels=num_channels,
+        code_table=table,
+        table_rate_cps=consts.CODE_RATE_CPS,
+        carrier_freq_hz=consts.FREQ_HZ,
+        code_period_s=consts.CODE_PERIOD_S,
+        acq_conf=AcqConfig(
+            fs=fs,
+            code_length_chips=consts.CODE_LENGTH_CHIPS,
+            code_rate_cps=consts.CODE_RATE_CPS,
+            doppler_max_hz=doppler_max_hz,
+            doppler_step_hz=doppler_step_hz,
+            max_dwells=acq_dwells,
+            # 500 bps: a bit edge can flip inside any 1 ms window
+            bit_transition_flag=True,
+            pfa=acq_pfa,
+        ),
+        trk_conf=DllPllConf(
+            fs=fs,
+            code_length_chips=consts.CODE_LENGTH_CHIPS,
+            code_rate_cps=consts.CODE_RATE_CPS,
+            carrier_freq_hz=consts.FREQ_HZ,
+            pll_bw_hz=pll_bw_hz,
+            dll_bw_hz=dll_bw_hz,
+            pll_bw_narrow_hz=pll_bw_narrow_hz,
+            dll_bw_narrow_hz=dll_bw_narrow_hz,
+            enable_fll_pull_in=enable_fll_pull_in,
+            fll_bw_hz=fll_bw_hz,
+            pull_in_time_s=pull_in_time_s,
+            extend_correlation_symbols=2,
+            codes_per_bit=2,
+            bit_sync_delay_s=0.3,
+            steps_per_block=steps_per_block or 20,
+            max_channels=num_channels,
+        ),
+        make_decoder=D2Decoder,
+        search_prns=search_prns,
+        acq_code_table=table,
+    )
+
+
+def beidou_b1i_plan(
+    fs: float,
+    num_channels: int = 8,
+    doppler_max_hz: float = 5000.0,
+    doppler_step_hz: float = 250.0,
+    acq_dwells: int = 2,
+    acq_pfa: float = 1e-3,
+    pll_bw_hz: float = 30.0,
+    dll_bw_hz: float = 2.0,
+    pll_bw_narrow_hz: float = 5.0,
+    dll_bw_narrow_hz: float = 0.5,
+    enable_fll_pull_in: bool = True,
+    fll_bw_hz: float = 4.0,
+    pull_in_time_s: float = 0.25,
+    extend_correlation_symbols: int = 20,
+    search_prns: tuple = tuple(range(6, 30)),
+    steps_per_block: int | None = None,
+) -> SignalPlan:
+    """BeiDou B1I MEO/IGSO (reference adapters BEIDOU_B1I_PCPS_Acquisition
+    / BEIDOU_B1I_DLL_PLL_Tracking / BEIDOU_B1I_Telemetry_Decoder, codes
+    beidou_b1i_signal_replica.cc): D1 NAV with NH20, 2046 chips at
+    2.046 Mcps."""
+    return _beidou_d1_plan(
+        "B1", "B1", beidou_b1i_code_table(), BDS, fs, num_channels,
+        doppler_max_hz, doppler_step_hz, acq_dwells, acq_pfa, pll_bw_hz,
+        dll_bw_hz, pll_bw_narrow_hz, dll_bw_narrow_hz, enable_fll_pull_in,
+        fll_bw_hz, pull_in_time_s, extend_correlation_symbols, search_prns,
+        steps_per_block)
+
+
+def beidou_b1i_geo_plan(
+    fs: float,
+    num_channels: int = 4,
+    doppler_max_hz: float = 3000.0,
+    doppler_step_hz: float = 125.0,
+    acq_dwells: int = 2,
+    acq_pfa: float = 1e-3,
+    pll_bw_hz: float = 25.0,
+    dll_bw_hz: float = 2.0,
+    pll_bw_narrow_hz: float = 5.0,
+    dll_bw_narrow_hz: float = 0.5,
+    enable_fll_pull_in: bool = True,
+    fll_bw_hz: float = 4.0,
+    pull_in_time_s: float = 0.25,
+    search_prns: tuple = (1, 2, 3, 4, 5),
+    steps_per_block: int | None = None,
+) -> SignalPlan:
+    """BeiDou B1I GEO (D2 NAV; PRNs 1-5; beidou_b1i_telemetry_decoder_gs.cc
+    GEO branch). GEO Doppler is small, so the default grid is narrow."""
+    return _beidou_d2_plan(
+        "B1G", "B1", beidou_b1i_code_table(), BDS, fs, num_channels,
+        doppler_max_hz, doppler_step_hz, acq_dwells, acq_pfa, pll_bw_hz,
+        dll_bw_hz, pll_bw_narrow_hz, dll_bw_narrow_hz, enable_fll_pull_in,
+        fll_bw_hz, pull_in_time_s, search_prns, steps_per_block)
+
+
+def beidou_b3i_plan(
+    fs: float,
+    num_channels: int = 8,
+    doppler_max_hz: float = 5000.0,
+    doppler_step_hz: float = 250.0,
+    acq_dwells: int = 2,
+    acq_pfa: float = 1e-3,
+    pll_bw_hz: float = 30.0,
+    dll_bw_hz: float = 2.0,
+    pll_bw_narrow_hz: float = 5.0,
+    dll_bw_narrow_hz: float = 0.5,
+    enable_fll_pull_in: bool = True,
+    fll_bw_hz: float = 4.0,
+    pull_in_time_s: float = 0.25,
+    extend_correlation_symbols: int = 20,
+    search_prns: tuple = tuple(range(6, 30)),
+    steps_per_block: int | None = None,
+) -> SignalPlan:
+    """BeiDou B3I MEO/IGSO (reference BEIDOU_B3I_* adapters, codes
+    beidou_b3i_signal_replica.cc): B1I's D1 framing and NH20 on the
+    10230-chip code at 10.23 Mcps."""
+    return _beidou_d1_plan(
+        "B3", "B3", beidou_b3i_code_table(), B3, fs, num_channels,
+        doppler_max_hz, doppler_step_hz, acq_dwells, acq_pfa, pll_bw_hz,
+        dll_bw_hz, pll_bw_narrow_hz, dll_bw_narrow_hz, enable_fll_pull_in,
+        fll_bw_hz, pull_in_time_s, extend_correlation_symbols, search_prns,
+        steps_per_block)
+
+
+def beidou_b3i_geo_plan(
+    fs: float,
+    num_channels: int = 4,
+    doppler_max_hz: float = 3000.0,
+    doppler_step_hz: float = 125.0,
+    acq_dwells: int = 2,
+    acq_pfa: float = 1e-3,
+    pll_bw_hz: float = 25.0,
+    dll_bw_hz: float = 2.0,
+    pll_bw_narrow_hz: float = 5.0,
+    dll_bw_narrow_hz: float = 0.5,
+    enable_fll_pull_in: bool = True,
+    fll_bw_hz: float = 4.0,
+    pull_in_time_s: float = 0.25,
+    search_prns: tuple = (1, 2, 3, 4, 5),
+    steps_per_block: int | None = None,
+) -> SignalPlan:
+    """BeiDou B3I GEO (D2 NAV, no NH secondary): the B3-band twin of
+    beidou_b1i_geo_plan (beidou_b3i_telemetry_decoder_gs GEO branch)."""
+    return _beidou_d2_plan(
+        "B3G", "B3", beidou_b3i_code_table(), B3, fs, num_channels,
+        doppler_max_hz, doppler_step_hz, acq_dwells, acq_pfa, pll_bw_hz,
+        dll_bw_hz, pll_bw_narrow_hz, dll_bw_narrow_hz, enable_fll_pull_in,
+        fll_bw_hz, pull_in_time_s, search_prns, steps_per_block)

@@ -1,12 +1,15 @@
 """End-to-end receiver: acquisition -> tracking -> telemetry -> observables
 -> PVT.
 
-Counterpart of ``gnss_sdr_tpu/receiver/receiver.py``, for GPS L1 C/A and
-L5, QZSS L1 C/A and L5, Galileo E1 (E1-B data-only, and E1-B+C with pilot
-tracking), E5a and E5b, and GLONASS L1 and L2 C/A (FDMA: one detection per
-frequency channel, the slot offset in the tracker's NCO, the GNAV slot
-number re-keying a channel that acquired an antipodal twin), with one
-sample stream per band. Host-side
+Counterpart of ``gnss_sdr_tpu/receiver/receiver.py``, for every plan of
+``receiver/plans.py``: GPS L1 C/A, L2C and L5, QZSS L1 C/A and L5, SBAS
+L1, Galileo E1 (E1-B data-only, and E1-B+C with pilot tracking), E5a, E5b
+and E6B, GLONASS L1 and L2 C/A (FDMA: one detection per frequency channel,
+the slot offset in the tracker's NCO, the GNAV slot number re-keying a
+channel that acquired an antipodal twin) and BeiDou B1I and B3I (D1 with
+the NH20 secondary on the data component, GEO with D2; two groups may
+share a band, each searching its own PRNs), with one sample stream per
+band. Host-side
 orchestration plays the roles of the reference's
 ControlThread event loop and GNSSFlowgraph channel management around the
 batched device engines:
@@ -15,7 +18,8 @@ batched device engines:
   engine and one batched Tracker (all its channels in one device batch);
   a satellite already tracked on another carrier is searched by a narrow
   assisted engine around its projected Doppler;
-- telemetry: per-channel decoders (LNAV, I/NAV, CNAV, F/NAV, GNAV) fed with
+- telemetry: per-channel decoders (LNAV, I/NAV, CNAV, F/NAV, GNAV, D1,
+  D2, SBAS, the E6B page stream) fed with
   prompt signs, on pilot plans with the data component's symbols once the
   secondary code is locked;
 - observables: one shared ObservablesEngine anchored by telemetry TOWs;

@@ -10,9 +10,12 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 COPIES = [
+    "codes/beidou_b1i.py",
+    "codes/beidou_b3i.py",
     "codes/galileo_e1.py",
     "codes/galileo_e5a.py",
     "codes/galileo_e5b.py",
+    "codes/galileo_e6.py",
     "codes/glonass_ca.py",
     "codes/gps_l1_ca.py",
     "codes/gps_l2c.py",
@@ -20,9 +23,12 @@ COPIES = [
     "codes/resample.py",
     "config/__init__.py",
     "config/configuration.py",
+    "constants/beidou_b1i.py",
+    "constants/beidou_b3i.py",
     "constants/galileo_e1.py",
     "constants/galileo_e5a.py",
     "constants/galileo_e5b.py",
+    "constants/galileo_e6.py",
     "constants/general.py",
     "constants/glonass_l1.py",
     "constants/gps_l1_ca.py",
@@ -52,19 +58,24 @@ COPIES = [
     "pvt/ephemeris.py",
     "pvt/glonass.py",
     "pvt/solver.py",
+    "simulate/beidou.py",
     "simulate/constellation.py",
     "simulate/galileo.py",
     "simulate/glonass.py",
     "simulate/multiband.py",
     "simulate/scenario.py",
     "telemetry/cnav.py",
+    "telemetry/dnav.py",
+    "telemetry/dnav_d2.py",
     "telemetry/fec.py",
     "telemetry/fnav.py",
     "telemetry/gnav.py",
+    "telemetry/hascnav.py",
     "telemetry/inav.py",
     "telemetry/lnav.py",
     "telemetry/lnav_encode.py",
     "telemetry/reed_solomon.py",
+    "telemetry/sbas.py",
     "tracking/conf.py",
     "tracking/lock_detectors.py",
     "utils/log.py",
@@ -87,6 +98,7 @@ def test_copy_is_verbatim(rel):
     "codes/data/galileo_e1_codes.npz",
     "codes/data/galileo_e5a_codes.npz",
     "codes/data/galileo_e5b_codes.npz",
+    "codes/data/galileo_e6_codes.npz",
     "codes/data/l2c_b3i_tables.npz",
 ])
 def test_data_file_is_byte_equal(rel):

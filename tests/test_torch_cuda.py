@@ -18,8 +18,13 @@ from gnss_sdr_tpu_torch.ops.slots import S_INTEG_CNT, S_SEC_IDX
 from gnss_sdr_tpu_torch.tools import mosaic_probe as p1
 
 from torch_cases import (
+    B1I_FS,
+    B1I_KW,
+    B1I_LEN,
+    B1I_NMAX,
     C as PILOT_C,
     CHECK_LANES,
+    D1_SECS,
     DOPS,
     E1_KW,
     E1_LEN,
@@ -32,6 +37,9 @@ from torch_cases import (
     L5_KW,
     L5_LEN,
     L5_NMAX,
+    L2C_KW,
+    L2C_LEN,
+    L2C_NMAX,
     SD,
     SP,
     TAPS,
@@ -43,6 +51,9 @@ from torch_cases import (
     correlator_inputs,
     correlator_rel_err,
     conf_kw,
+    d1_block,
+    d1_inputs,
+    d1_signal,
     fdma_noise_inputs,
     fused_noise_case,
     glonass_block,
@@ -560,3 +571,126 @@ def test_eager_pilot_engine_on_k3_matches_plain_cuda(cuda):
             assert np.median(np.abs(pa - pb) / (np.abs(pa) + 1e-9)) < 5e-3
         assert np.abs(a["carrier_phase"] - b["carrier_phase"]).max() < 1e-3
         assert np.abs(a["rem_code_phase"] - b["rem_code_phase"]).max() < 1e-3
+
+
+# The last plans' shapes (name -> K, n_max, code length, loop constants,
+# D1 mode): BeiDou B1I in the D1 mode at 2.6 Msps; B3I in the D1 mode at
+# 16.368 Msps (n_max 16370: K2 streams a period in two chunks of 8186
+# samples and holds two 10230-unit tables beside them, ~214 KB, the
+# nearest any plan comes to the card's 232448 B); GPS L2C's 20 ms period at
+# 2.6 Msps (n_max 52002: seven chunks a period); Galileo E6B's 5115 chips
+# at 10.23 Msps.
+LAST_SHAPES = {
+    "b1i_d1": (20, B1I_NMAX, B1I_LEN, B1I_KW, True),
+    "b3i_d1": (20, 16370, 10230, dict(fs=16.368e6, code_rate_cps=10.23e6,
+                                      carrier_freq_hz=1268.52e6), True),
+    "l2c": (4, L2C_NMAX, L2C_LEN, L2C_KW, False),
+    "e6b": (20, 10232, 5115, dict(fs=10.23e6, code_rate_cps=5.115e6,
+                                  carrier_freq_hz=1278.75e6), False),
+}
+LAST_CASES = [(c, shape) for shape in LAST_SHAPES for c in (1, 8)]
+LAST_IDS = [f"C{c}_{shape}" for c, shape in LAST_CASES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,shape", LAST_CASES, ids=LAST_IDS)
+def test_last_plans_fused_kernels_match_plain_cuda(cuda, C, shape):
+    """K1 and K2 at each shape against their plain version over two
+    launches on noise: 5e-5 relative over the first two periods and 2e-3
+    over all, lanes 10 and 17 exact. In the D1 mode the channels start
+    mid-symbol (counters at 7 + 5c mod 20) with atan2 off, and each closes
+    an integration and a data symbol."""
+    K, nmax, length, kw, d1 = LAST_SHAPES[shape]
+    if d1:
+        sec0 = [(7 + 5 * c) % 20 for c in range(C)]
+        codes, dcodes, wr, wi, scal, secp, secd = d1_inputs(
+            C, K, nmax, length, sec0, seed=9, launches=2)
+        kw = dict(kw, **D1_SECS)
+        tables = (dcodes, secp, secd)
+    else:
+        codes, _, wr, wi, scal, _, _ = pilot_inputs(
+            C, K, nmax, TAPS, False, 1, 1, 1, extend=1, seed=9, launches=2,
+            code_len=length)
+        tables = ()
+    window = (wr.ravel() + 1j * wi.ravel()).astype(np.complex64)
+    o_p = run_tracker(k1.track_blocked_plain,
+                      k1.make_blocked_spec(K, nmax, length, TAPS, **kw),
+                      window, codes, scal, 2, cuda, tables)
+    assert (o_p[:, :, 20].sum(axis=1) >= 1).all()
+    if d1:
+        assert (o_p[:, :, 34].sum(axis=1) >= 1).all()
+    for make, fn in ((k1.make_blocked_spec, k1.track_blocked),
+                     (k2.make_full_spec, k2.track_full)):
+        before = fn.launches
+        o_k = run_tracker(fn, make(K, nmax, length, TAPS, **kw), window,
+                          codes, scal, 2, cuda, tables)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2
+        assert_rows_close(o_p[:, :2], o_k[:, :2], lanes=check_lanes(3))
+        assert_rows_close(o_p, o_k, tol=2e-3, lanes=check_lanes(3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan_name,fs", [("beidou_b1i_plan", B1I_FS),
+                                          ("beidou_b3i_plan", 16.368e6)],
+                         ids=["b1i", "b3i"])
+def test_d1_block_k200_matches_plain_cuda(cuda, plan_name, fs):
+    """One block of K = 200 periods of eight channels of the plan tracking
+    d1_signal's channels (NH20 and navigation bits), as the tracker packs
+    them past the NH20 lock, mid-symbol (Costas kept, 20-period
+    integration): K1 and K2 against their plain version, 5e-5 relative
+    over the first two periods and 2e-3 over all, lanes 10 and 17
+    exact."""
+    from gnss_sdr_tpu_torch.receiver import plans
+
+    C, K = 8, 200
+    plan = getattr(plans, plan_name)(fs, num_channels=C)
+    dops = [1200.0, -2500.0, 3400.0, -400.0, 150.0, -3900.0, 2600.0,
+            -1700.0]
+    delays = [37.0 + 0.131 * fs * c / 1e3 for c in range(C)]
+    sec0 = [(3 + 7 * c) % 20 for c in range(C)]
+    sig = d1_signal(plan, int(fs * (K + 3) * 1e-3), dops, delays, sec0, 5)
+    (window, codes, scal, pos, spec), tabs = d1_block(
+        plan, K, dops, delays, sec0, sig, cuda)
+    o_p = k1.track_blocked_plain(window, codes, scal, pos, spec,
+                                 *tabs).cpu().numpy()
+    assert (o_p[:, :, 20].sum(axis=1) >= K // 20 - 1).all()
+    assert (o_p[:, :, 34].sum(axis=1) >= K // 20 - 1).all()
+    for fn in (k1.track_blocked, k2.track_full):
+        before = fn.launches
+        o_k = fn(window, codes, scal, pos, spec, *tabs).cpu().numpy()
+        assert fn.launches == before + 1
+        assert_rows_close(o_p[:, :2], o_k[:, :2], lanes=check_lanes(3))
+        assert_rows_close(o_p, o_k, tol=2e-3, lanes=check_lanes(3))
+
+
+# K3 on one period of each last plan's shape: (N, L, data prompt)
+LAST_CORR = {"b1i_d1": (2688, B1I_LEN, True), "b3i_d1": (16384, 10230, True),
+             "l2c": (52096, L2C_LEN, False), "e6b": (10240, 5115, False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(LAST_CORR))
+def test_last_plans_correlator_matches_plain_cuda(cuda, shape):
+    """K3 at C = 8 on one period of each shape against its plain version
+    within 2e-3 (the JAX test's measure); in the D1 mode the data prompt
+    runs on a data table equal to the code table, as the D1 plans give
+    it."""
+    n, length, pilot = LAST_CORR[shape]
+    codes, x, sc = correlator_inputs(8, n, length, n - 86, 1)
+    args = (torch.as_tensor(x, device=cuda),
+            torch.as_tensor(pack_code_table(codes), device=cuda),
+            torch.as_tensor(pack_code_table(codes), device=cuda),
+            torch.as_tensor(sc, device=cuda), TAPS)
+    kw = dict(code_len=length, interp_code=True, track_pilot=pilot)
+    before = k3.correlator.launches
+    got = k3.correlator(*args, **kw).cpu().numpy()
+    assert k3.correlator.launches == before + 1
+    ref = k3.correlator_plain(*args, **kw).cpu().numpy()
+    nt = 4 if pilot else 3
+    assert correlator_rel_err(got, ref, nt) < 2e-3
+    if pilot:
+        # the data prompt of an equal table is the prompt tap
+        scale = max(1.0, float(np.abs(got[:, 0, 2:4]).max()))
+        np.testing.assert_allclose(got[:, 0, 6:8], got[:, 0, 2:4], rtol=0,
+                                   atol=2e-3 * scale)

@@ -234,9 +234,10 @@ def test_fir_filter_raises():
 def test_galileo_group_raises():
     """The two RF chains of conf/dual_band_gps_gal.conf (GPS L1 C/A on L1,
     Galileo E5a, group 5X, on L5), a GPS L5 group, and the groups of
-    Galileo E5b (7X), QZSS L1 C/A and L5 (J1, J5) and GLONASS L1 and L2 C/A
-    (1G, 2G): both factories build equal plans. BeiDou B1I (group B1) is
-    not ported yet: its group names the plan and its ROADMAP queue item."""
+    Galileo E5b (7X), QZSS L1 C/A and L5 (J1, J5), GLONASS L1 and L2 C/A
+    (1G, 2G) and BeiDou B1I (B1): both factories build equal plans. (The
+    name is from when the B1 group raised; tests/test_torch_last_plans.py
+    holds the other groups of the last plans.)"""
     path = ROOT / "conf" / "dual_band_gps_gal.conf"
     rates = {"L1": 2.6e6, "L5": 10.4e6}
     jp = j_plans(JFileConfiguration(path), rates)
@@ -261,10 +262,11 @@ def test_galileo_group_raises():
         assert [(p.name, p.band) for p in tps] == [(group, band)]
         assert_plans_equal(jps[0], tps[0])
         assert tps[0].trk_conf.pll_bw_hz == 25.0
-    cfg = _cfg(Channels_B1__count=2)
-    with pytest.raises(NotImplementedError,
-                       match="beidou_b1i_plan.*queue item 10"):
-        get_signal_plans(cfg, {"B1": 4e6})
+    props = dict(Channels_B1__count=2)
+    (jb,) = j_plans(_cfg(JInMemoryConfiguration, **props), {"B1": 4e6})
+    (tb,) = get_signal_plans(_cfg(**props), {"B1": 4e6})
+    assert (tb.name, tb.band, tb.system) == ("B1", "B1", "C")
+    assert_plans_equal(jb, tb)
 
 
 def test_glonass_conf_runs(tmp_path, monkeypatch, capsys):

@@ -521,3 +521,100 @@ def glonass_block(K, dops, delays, ks, window, device):
     return (torch.as_tensor(window, device=device),
             torch.as_tensor(trk.codes, device=device),
             _pack_scalars(conf, st), st.pos, build_fused_engine(conf))
+
+
+# BeiDou B1I at 2.6 Msps (tests/test_beidou.py's rate): 2046 chips at
+# 2.046 Mchip/s, n_max as beidou_b1i_plan gives it; the D1 mode: the NH20
+# secondary on both tables of the one data component (counter modulo 20)
+B1I_FS = 2.6e6
+B1I_KW = dict(fs=B1I_FS, code_rate_cps=2.046e6, carrier_freq_hz=1561.098e6)
+B1I_LEN = 2046
+B1I_NMAX = 2602
+D1_SECS = dict(track_pilot=True, sec_len_pilot=20, sec_len_data=20,
+               sec_lcm=20)
+# GPS L2C (CM) at 2.6 Msps: the 10230-chip, 20 ms code at 511.5 kchip/s
+L2C_KW = dict(fs=2.6e6, code_rate_cps=0.5115e6, carrier_freq_hz=1227.6e6)
+L2C_LEN = 10230
+L2C_NMAX = 52002
+
+
+def d1_inputs(C, K, nmax, code_len, sec0, seed, launches=1):
+    """pilot_inputs in the D1 mode: the data code equal to the pilot code,
+    both secondary rows NH20-long and equal, the Costas discriminator kept
+    (atan2 off), 20-period integration, and channel c started mid-symbol:
+    its integration and secondary counters at ``sec0[c]``."""
+    from gnss_sdr_tpu_torch.ops.slots import S_ATAN2, S_INTEG_CNT, S_SEC_IDX
+
+    codes, _, wr, wi, scal, _, secd = pilot_inputs(
+        C, K, nmax, TAPS, True, 20, 20, 20, extend=20, seed=seed,
+        launches=launches, code_len=code_len)
+    secd[:] = secd[0]
+    scal[:, S_ATAN2] = 0
+    scal[:, S_SEC_IDX] = sec0
+    scal[:, S_INTEG_CNT] = sec0
+    return codes, codes.copy(), wr, wi, scal, secd.copy(), secd
+
+
+def d1_signal(plan, n, dops, delays, sec0, seed):
+    """Channels c of a BeiDou D1 ``plan`` (its table rows c) at its rate:
+    the code times NH20 times a random navigation bit each 20 periods, on
+    the in-phase axis, secondary chip ``sec0[c]`` on the period that starts
+    at the channel's delay (samples), at the given Dopplers, with noise."""
+    rng = np.random.default_rng(seed)
+    fs, length = plan.fs, plan.table_length
+    tt = np.arange(n) / fs
+    sig = np.zeros(n, np.complex64)
+    nh = plan.sec_data_levels
+    for c, (dop, dly, s0) in enumerate(zip(dops, delays, sec0)):
+        u = np.floor((plan.table_rate_cps
+                      * (1 + dop / plan.carrier_freq_hz))
+                     * (tt - dly / fs)).astype(np.int64)
+        per = np.floor_divide(u, length) + s0
+        bit_i = np.floor_divide(per, 20)
+        bits = np.where(rng.random(int(bit_i.max() - bit_i.min()) + 1)
+                        < 0.5, 1.0, -1.0)[bit_i - bit_i.min()]
+        chips = plan.code_table[c][u - np.floor_divide(u, length) * length]
+        sig += (0.35 * chips * nh[per % 20] * bits
+                * np.exp(2j * np.pi * dop * tt + 0.3j * c)).astype(
+                    np.complex64)
+    noise = rng.normal(size=(n, 2)).astype(np.float32) * 0.05
+    return (sig + noise[:, 0] + 1j * noise[:, 1]).astype(np.complex64)
+
+
+def d1_block(plan, K, dops, delays, sec0, window, device):
+    """The fused engine's inputs for one block of K periods of a BeiDou D1
+    ``plan``'s channels on ``window`` (d1_signal's), as the tracker packs
+    them: each channel started at its delay 3 Hz off its Doppler, then
+    past the NH20 lock as ``Tracker._engage_secondary`` leaves it,
+    mid-symbol: the secondary engaged at chip ``sec0[c]``, the Costas
+    discriminator kept, narrow bandwidths, 20-period integration with the
+    counter at ``sec0[c]``. Returns (window, codes, scalars, pos, spec)
+    and the pilot tables."""
+    from gnss_sdr_tpu_torch.tracking.fused import (
+        _pack_scalars,
+        build_fused_engine,
+    )
+    from gnss_sdr_tpu_torch.tracking.tracker import Tracker
+
+    conf = dataclasses.replace(plan.trk_conf, steps_per_block=K)
+    trk = Tracker(conf, plan.code_table, plan.data_code_table,
+                  plan.sec_pilot_table, plan.sec_data_levels, device=device)
+    for ch in range(len(dops)):
+        trk.start_channel(ch, prn=ch + 1, code_row=ch,
+                          acq_delay_samples=delays[ch],
+                          acq_doppler_hz=dops[ch] + 3.0,
+                          acq_samplestamp=0, current_abs_sample=0)
+    c = len(sec0)
+    on = torch.ones(c, dtype=torch.bool, device=device)
+    idx = torch.as_tensor(np.asarray(sec0, np.int32), device=device)
+    st = trk.state.replace(
+        pos=torch.as_tensor(trk.pos_abs.astype(np.int32), device=device),
+        sec_active=on, use_atan2=~on, narrow=on, fll_active=~on,
+        integ_len=torch.full((c,), 20, dtype=torch.int32, device=device),
+        integ_count=idx.clone(), sec_idx=idx.clone())
+    tabs = tuple(torch.as_tensor(t, device=device) for t in (
+        trk.data_codes, trk.sec_pilot, trk.sec_data))
+    return ((torch.as_tensor(window, device=device),
+             torch.as_tensor(trk.codes, device=device),
+             _pack_scalars(conf, st), st.pos, build_fused_engine(conf)),
+            tabs)
