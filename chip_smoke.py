@@ -38,7 +38,17 @@ receiver of ``tests/test_beidou.py`` from Python (with the three engines
 on its B1I capture) and through the CLI with two RF chains (K1 and K2),
 the B1I GEO (D2) case of ``tests/test_beidou_geo.py`` through the
 ``Tracker``, PCPS for E6B, SBAS, L2C and B3I, and ``bench.py``'s mc64
-(GPS, Galileo, GLONASS and BeiDou, 16 channels each, three bands). Each
+(GPS, Galileo, GLONASS and BeiDou, 16 channels each, three bands). Then
+the alternates: the fine-Doppler, Tong, QuickSync, CCCWSR and
+noncoherent I/Q acquisition engines against PCPS on the first window of
+the gps8, E1-B and E5a captures, and ``tests/test_roc.py``'s ROC sweep;
+``tests/test_kf_tracking.py``'s cases and the gps8 receiver with
+GPS_L1_CA_KF_Tracking (the eager engine, K3 once a period, K3 held to its
+plain version on a period of the run); ``conf/gps_l1_gaussian.conf``'s
+CKF loop closer through the CLI (K1); ``tests/test_tcp_connector.py``'s
+external loop over a localhost socket; the gps8 capture moved to a
+250 kHz IF through the CLI with a Freq_Xlating_Fir_Filter; and each
+conditioner stage on the card against the CPU. Each
 run is held to its test's gates, and each kernel it ran to its plain
 version on a block of the run's own inputs. The Galileo, dual-band,
 GLONASS, BeiDou and mc64 captures are made in 1 s chunks by worker
@@ -481,12 +491,15 @@ def fused_phase(dev, tbl, sig, dops, delays, C, kernels) -> None:
 
 def cli_phase(capture: np.ndarray, scen, tmp: Path) -> dict:
     """Phase 7: the .conf/CLI entry point on an ibyte copy of the capture,
-    through K1 and through K2, and the CLI itself as a subprocess."""
+    through K1 and through K2, and the CLI itself as a subprocess. The K1
+    run's first acquisition goes into the result as ``first_acquired``
+    ((system, PRN) -> (Doppler, delay)), for phases 35 and 37."""
     from gnss_sdr_tpu_torch import main as cli
     from gnss_sdr_tpu_torch.config.configuration import FileConfiguration
     from gnss_sdr_tpu_torch.io import encode_samples
     from gnss_sdr_tpu_torch.ops import track_kernel as k2
     from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver
     from gnss_sdr_tpu_torch.tracking.tracker import Tracker
 
     # tests/test_main_cli.py's encoding: int8 I/Q at 16 counts per unit
@@ -515,12 +528,20 @@ def cli_phase(capture: np.ndarray, scen, tmp: Path) -> dict:
         blocks[0] += 1
         return r
 
-    runs = {}
+    runs, acquisitions, acquire = {}, [], Receiver.acquire
+
+    def acquired(self, *a, **kw):
+        started = acquire(self, *a, **kw)
+        acquisitions.append(started)
+        return started
+
     Tracker.process_device = counted
+    Receiver.acquire = acquired
     try:
         for engine, env in (("track_blocked", None),
                             ("track_full", "perchannel")):
             blocks[0] = 0
+            acquisitions.clear()
             k1.track_blocked.launches = 0
             k2.track_full.launches = 0
             out = io.StringIO()
@@ -544,8 +565,11 @@ def cli_phase(capture: np.ndarray, scen, tmp: Path) -> dict:
                 status_tables=out.getvalue().count("channel status"),
                 wall_s=wall, realtime_factor=scen.cfg.duration_s / wall)
             emit("cli_run", engine=engine, **runs[engine])
+            if engine == "track_blocked":
+                runs["first_acquired"] = dict(acquisitions[0])
     finally:
         Tracker.process_device = process
+        Receiver.acquire = acquire
 
     # the CLI as a user runs it
     t = time.perf_counter()
@@ -3258,6 +3282,595 @@ def mc64_phase(caps, kernels) -> dict:
     return e
 
 
+# ---- acquisition engines, tracking alternates, the conditioner -------------
+
+IF_HZ = 250e3                   # the IF the conditioned CLI run removes
+IF_TAPS = 65                    # its FIR, linear phase: (65 - 1) / 2 samples late
+# phase 32's false-alarm rate per searched row: its seven runs search 32 to
+# 50 rows each, so at 1e-5 a false detection comes about once in 300 calls
+# (at the plans' 1e-3 it would come in one call of five)
+ACQ_PFA = 1e-5
+
+
+def acq_truth(src, prns, sample: float) -> dict:
+    """{prn: Doppler} of ``src``'s satellites at a window's middle."""
+    return {p: float(src.truth_at(p, sample)["doppler_hz"]) for p in prns}
+
+
+def hold_engine(run: str, name: str, eng, ref, x: np.ndarray, prns: list,
+                rows: np.ndarray, spc: int, step: float, truth: dict,
+                must: set | None = None) -> dict:
+    """One acquisition engine on the first window of a capture against the
+    PCPS result ``ref`` on that window, timed: it detects every satellite
+    of ``must`` (PCPS's detections unless given) and no satellite outside
+    the scenario; where both detect, the Doppler lies within one PCPS bin
+    (``step``) and the delay within one sample of PCPS's; a satellite only
+    the engine detects lies within one bin of the scenario's Doppler."""
+    n = getattr(eng, "win", None) or eng.conf.input_samples
+    xe = np.ascontiguousarray(np.broadcast_to(x[:n], (len(rows), n)))
+    res = eng.acquire(xe, rows)
+    ms = cuda_ms(lambda: eng.acquire(xe, rows), 3, queue_ahead=False,
+                 name=f"{name} {run}")
+    det = {p for p, d in zip(prns, res.detected) if d}
+    ref_det = {p for p, d in zip(prns, ref.detected) if d}
+    must = ref_det if must is None else must
+    idx = {p: i for i, p in enumerate(prns)}
+    dop_diff = lag_diff = truth_diff = 0.0
+    for p in det:
+        i = idx[p]
+        if p in ref_det:
+            dop_diff = max(dop_diff, abs(res.doppler_hz[i]
+                                         - ref.doppler_hz[i]))
+            d = abs(res.delay_samples[i] - ref.delay_samples[i]) % spc
+            lag_diff = max(lag_diff, min(d, spc - d))
+        elif p in truth:
+            truth_diff = max(truth_diff, abs(res.doppler_hz[i] - truth[p]))
+    e = dict(run=run, engine=name, window=n, detected=sorted(det),
+             pcps_detected=sorted(ref_det), must=sorted(must),
+             missed_of_pcps=sorted(ref_det - det),
+             doppler_diff_hz=dop_diff, delay_diff_samples=lag_diff,
+             only_engine_truth_diff_hz=truth_diff, doppler_step_hz=step,
+             ms_per_acquire=ms, rows=len(rows))
+    emit("acq_engine", **e)
+    if not (must <= det and det <= set(truth) and dop_diff <= step
+            and lag_diff <= 1.0 and truth_diff <= step):
+        raise AssertionError(f"{name} on {run} disagrees with PCPS: {e}")
+    return dict(e, res=res)
+
+
+def acq_engines_phase(gps_cap, gps_scen, caps) -> dict:
+    """Phase 32: the acquisition engine variants on the first acquisition
+    window of three captures, each against PCPS on that window
+    (hold_engine), every engine and PCPS at a Pfa of ACQ_PFA: fine-Doppler (tests/test_acq_engines.py's 500 Hz coarse
+    step, 4 ms coherent, 4 iterations: its Doppler within 500 / 2**4 Hz
+    of the scenario's), Tong and QuickSync on gps8's; Tong, QuickSync and
+    CCCWSR (4092 chips at 1.023 Mchip/s, the E1-B code without subcarrier)
+    on e1b's; noncoherent I/Q on e5a's. QuickSync folds one code period
+    into two halves before its search, which adds the other half's noise
+    and code to each cell: on these windows its search settles on a wrong
+    cell for some satellites PCPS finds (on the CPU too, where it equals
+    the JAX engine), so it must find one satellite at least, and what it
+    finds is held as the others are. Then measure_roc at
+    tests/test_roc.py's settings, for both statistics, with its gates."""
+    from gnss_sdr_tpu_torch import acquisition as A
+    from gnss_sdr_tpu_torch.acquisition.roc import measure_roc
+    from gnss_sdr_tpu_torch.codes.galileo_e1 import galileo_e1b_code
+    from gnss_sdr_tpu_torch.codes.gps_l1_ca import gps_l1_ca_code_table
+    from gnss_sdr_tpu_torch.receiver.plans import (
+        galileo_e1b_plan,
+        galileo_e5a_plan,
+        gps_l1ca_plan,
+    )
+
+    out = {}
+
+    def run_window(run, plan, x, src, engines):
+        prns = list(plan.search_prns)
+        rows = np.array([plan.prn_row(p) for p in prns])
+        table = (plan.acq_code_table if plan.acq_code_table is not None
+                 else plan.code_table)
+        pcps = A.PcpsAcquisition(plan.acq_conf, table, prns)
+        n = pcps.conf.input_samples
+        xp = np.ascontiguousarray(np.broadcast_to(x[:n], (len(rows), n)))
+        ref = pcps.acquire(xp, rows)
+        pcps_ms = cuda_ms(lambda: pcps.acquire(xp, rows), 3,
+                          queue_ahead=False, name=f"pcps {run}")
+        emit("acq_engine", run=run, engine="pcps", window=n,
+             detected=[p for p, d in zip(prns, ref.detected) if d],
+             ms_per_acquire=pcps_ms, rows=len(rows))
+        truth = acq_truth(src, list(src.prns), n / 2)
+        res = {"pcps_ms": pcps_ms}
+        for name, eng, eng_rows in engines:
+            # QuickSync's folded search loses satellites PCPS finds (see
+            # the docstring): it must find one at least
+            must = set() if name == "quicksync" else None
+            res[name] = hold_engine(run, name, eng, ref, x, prns,
+                                    rows if eng_rows is None else eng_rows,
+                                    plan.acq_conf.samples_per_code,
+                                    plan.acq_conf.doppler_step_hz, truth,
+                                    must)
+            if not res[name]["detected"]:
+                raise AssertionError(f"{name} on {run} detects nothing")
+        return res, truth
+
+    def at_pfa(plan):
+        plan.acq_conf = dataclasses.replace(plan.acq_conf, pfa=ACQ_PFA)
+        return plan
+
+    # gps8
+    plan = at_pfa(gps_l1ca_plan(FS, num_channels=8))
+    prns = list(plan.search_prns)
+    fconf = dataclasses.replace(plan.acq_conf, doppler_step_hz=500.0,
+                                coherent_integration_periods=4, max_dwells=1)
+    fine = A.FineDopplerAcquisition(fconf, plan.code_table, prns,
+                                    iterations=4)
+    res, truth = run_window("gps8", plan, gps_cap, gps_scen, [
+        ("fine_doppler", fine, None),
+        ("tong", A.TongAcquisition(plan.acq_conf, plan.code_table, prns),
+         None),
+        ("quicksync", A.QuickSyncAcquisition(plan.acq_conf, plan.code_table,
+                                             prns), None)])
+    fr = res["fine_doppler"]["res"]
+    fine_err = max(abs(fr.doppler_hz[i] - truth[p])
+                   for i, p in enumerate(prns) if fr.detected[i])
+    fine_bound = fconf.doppler_step_hz / 2 ** fine.iterations
+    emit("acq_fine_doppler_truth", run="gps8", max_err_hz=fine_err,
+         bound_hz=fine_bound)
+    if not fine_err <= fine_bound:
+        raise AssertionError(f"fine Doppler {fine_err} Hz from the truth, "
+                             f"bound {fine_bound}")
+    out["gps8"] = {k: v["ms_per_acquire"] if isinstance(v, dict) else v
+                   for k, v in res.items()}
+
+    # e1b: Tong and QuickSync on the plan's 8184-unit sinBOC table; CCCWSR
+    # on the raw E1-B chips at the chip rate (the engine builds both
+    # subcarrier replicas itself)
+    plan = at_pfa(galileo_e1b_plan(fs=GAL_SCENARIOS["e1b"]["fs"],
+                                   num_channels=6))
+    prns = list(plan.search_prns)
+    cconf = dataclasses.replace(plan.acq_conf, code_length_chips=4092,
+                                code_rate_cps=1.023e6)
+    chips = np.stack([galileo_e1b_code(p) for p in prns])
+    res, _ = run_window("e1b", plan, caps["e1b"], gal_scenario("e1b"), [
+        ("tong", A.TongAcquisition(plan.acq_conf, plan.code_table, prns),
+         None),
+        ("quicksync", A.QuickSyncAcquisition(plan.acq_conf, plan.code_table,
+                                             prns), None),
+        ("cccwsr", A.CccwsrAcquisition(cconf, chips, prns),
+         np.arange(len(prns)))])
+    out["e1b"] = {k: v["ms_per_acquire"] if isinstance(v, dict) else v
+                  for k, v in res.items()}
+
+    # e5a: the data code (PCPS's table) on I, the pilot on Q
+    plan = at_pfa(galileo_e5a_plan(fs=L5_FS, num_channels=5))
+    prns = list(plan.search_prns)
+    res, _ = run_window("e5a", plan, caps["e5a"], capture_source("e5a"), [
+        ("noncoh_iq", A.NoncoherentIQAcquisition(
+            plan.acq_conf, plan.acq_code_table, plan.code_table, prns),
+         None)])
+    out["e5a"] = {k: v["ms_per_acquire"] if isinstance(v, dict) else v
+                  for k, v in res.items()}
+
+    # tests/test_roc.py
+    for statistic in ("max_to_input_power", "peak1_peak2"):
+        conf = A.AcqConfig(fs=FS, code_length_chips=1023,
+                           code_rate_cps=1.023e6, doppler_max_hz=5000.0,
+                           doppler_step_hz=250.0, max_dwells=1, pfa=0.03,
+                           statistic=statistic)
+        t = time.perf_counter()
+        roc = measure_roc(conf, gps_l1_ca_code_table(),
+                          cn0_list=(35.0, 41.0, 47.0), trials=16,
+                          pfa_trials=64)
+        pds = [r["pd"] for r in roc["pd_curve"]]
+        last = roc["pd_curve"][2]
+        emit("acq_roc", **roc, seconds=time.perf_counter() - t)
+        if not (roc["measured_pfa"] <= 6.5 / 64 and pds[2] >= 0.95
+                and pds[2] >= pds[0] - 0.1 and last["doppler_err_hz"] <= 150.0
+                and last["delay_err_samples"] <= 1.5):
+            raise AssertionError(f"ROC gates failed: {roc}")
+    return out
+
+
+def kf_cases_phase() -> dict:
+    """Phase 33: tests/test_kf_tracking.py's two cases (GPS_L1_CA_KF's
+    EKF from FLL pull-in, 2.2 s at 2.6 Msps) through the port's Tracker on
+    the card, where the Kalman mode runs the eager engine (K3 once a
+    period), with that test's gates: the converging case's Doppler within
+    3 Hz of the truth over its last 20 blocks, bit sync, NARROW and C/N0 in
+    (40, 52) dB-Hz; the 8 Hz/s ramp within 5 Hz at its end."""
+    from gnss_sdr_tpu_torch.codes.gps_l1_ca import gps_l1_ca_code_table
+    from gnss_sdr_tpu_torch.ops import correlator as k3
+    from gnss_sdr_tpu_torch.simulate import (
+        SatelliteSignalParams,
+        generate_baseband,
+    )
+    from gnss_sdr_tpu_torch.tracking import ChannelPhase, DllPllConf, Tracker
+
+    sps_chip = FS / 1.023e6
+    conf = DllPllConf(fs=FS, code_length_chips=1023, code_rate_cps=1.023e6,
+                      carrier_freq_hz=1575.42e6, kf=True,
+                      enable_fll_pull_in=True, pull_in_time_s=0.25,
+                      extend_correlation_symbols=20, max_channels=4,
+                      steps_per_block=20)
+    rng = np.random.default_rng(21)
+    cases = {
+        "converges": (SatelliteSignalParams(
+            prn=5, cn0_dbhz=46.0, doppler_hz=-1234.0, delay_chips=400.0,
+            nav_bits=rng.choice([-1.0, 1.0], size=200),
+            carrier_phase_rad=1.1), 22, 400.0 * sps_chip + 0.5, 90.0),
+        "ramp": (SatelliteSignalParams(
+            prn=9, cn0_dbhz=48.0, doppler_hz=500.0, doppler_rate_hz_s=8.0,
+            delay_chips=100.0), 23, 100.0 * sps_chip, -60.0),
+    }
+    out = {}
+    for name, (sat, seed, delay, dop_err) in cases.items():
+        x = generate_baseband([sat], FS, int(FS * 2.2), seed=seed)
+        trk = Tracker(conf, gps_l1_ca_code_table())
+        trk.start_channel(ch=0, prn=sat.prn, code_row=sat.prn - 1,
+                          acq_delay_samples=delay,
+                          acq_doppler_hz=sat.doppler_hz + dop_err,
+                          acq_samplestamp=0, current_abs_sample=0)
+        k3.correlator.launches = 0
+        results = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(100):
+            base, w = trk.window_request()
+            if base + w > len(x):
+                break
+            results.append(trk.process(x[base:base + w], base))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        n3 = k3.correlator.launches
+        if n3 != len(results) * conf.steps_per_block:
+            raise AssertionError(f"KF {name}: {n3} K3 launches for "
+                                 f"{len(results)} blocks")
+        if name == "converges":
+            dops = np.concatenate([r.outputs["carrier_doppler"][:, 0]
+                                   for r in results[-20:]])
+            events = [e for r in results for e in r.events]
+            e = dict(doppler_err_hz=float(abs(dops.mean() - sat.doppler_hz)),
+                     bit_sync=(0, "bit_sync") in events,
+                     narrow=trk.ctl[0].phase == ChannelPhase.NARROW,
+                     cn0_dbhz=float(trk.ctl[0].cn0_dbhz))
+            ok = (len(results) >= 90 and e["doppler_err_hz"] < 3.0
+                  and e["bit_sync"] and e["narrow"]
+                  and 40.0 < e["cn0_dbhz"] < 52.0)
+        else:
+            last = results[-1]
+            expect = sat.doppler_hz + 8.0 * last.abs_sample_end[-1, 0] / FS
+            e = dict(doppler_err_hz=float(abs(
+                last.outputs["carrier_doppler"][-1, 0] - expect)))
+            ok = e["doppler_err_hz"] < 5.0
+        out[name] = dict(e, blocks=len(results), k3_launches=n3,
+                         wall_s=wall, realtime_factor=2.2 / wall)
+        emit("kf_case", case=name, **out[name])
+        if not ok:
+            raise AssertionError(f"KF case {name} fails its gates: {e}")
+    return out
+
+
+def kf_receiver_phase(capture, scen, kernels) -> dict:
+    """Phase 34: the Receiver with GPS_L1_CA_KF_Tracking's plan (the
+    factory's: gps_l1ca_plan with ``kf`` set) on gps8's capture, 1 s
+    feeds. The Kalman mode keeps the eager engine, so every period is one
+    K3 launch. After 12 s of signal the run's whole wall is projected;
+    within 150 s it goes on to 32 s and is held to the position gates,
+    else it stops there and holds its locks (>= 4 channels NARROW) and
+    each locked channel's Doppler within 5 Hz of the truth. K3 against
+    its plain version on a period of the run (``correlator_kf``)."""
+    from gnss_sdr_tpu_torch.ops import correlator as k3
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.receiver.plans import gps_l1ca_plan
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+    from gnss_sdr_tpu_torch.tracking import ChannelPhase
+
+    plan = gps_l1ca_plan(FS, num_channels=8)
+    plan.trk_conf = dataclasses.replace(plan.trk_conf, kf=True)
+    rx = Receiver(ReceiverConfig(fs=FS, num_channels=8), plans=[plan])
+    (blocks,) = count_blocks(rx)
+    dur = int(scen.cfg.duration_s)
+    k1.track_blocked.launches = 0
+    k3.correlator.launches = 0
+    chunk, acquired, projected = int(FS), False, None
+    with record_blocks() as rec:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(dur):
+            rx.feed(capture[i * chunk:(i + 1) * chunk])
+            if not acquired:
+                acquired = len(rx.acquire()) >= 4
+            rx.run()
+            if i + 1 == 12:
+                torch.cuda.synchronize()
+                projected = (time.perf_counter() - t) * dur / 12
+                if projected > 150.0:
+                    break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    fed_s = i + 1
+    n1, n3 = k1.track_blocked.launches, k3.correlator.launches
+    steps = plan.trk_conf.steps_per_block
+    if not (blocks[0] > 0 and n1 == 0 and n3 == blocks[0] * steps):
+        raise AssertionError(f"KF run: {n1} K1 and {n3} K3 launches for "
+                             f"{blocks[0]} blocks")
+    trk = rx.groups[0].tracker
+    act = trk.active_channels()
+    e = dict(signal_s=fed_s, projected_wall_s=projected, blocks=blocks[0],
+             k3_launches=n3, wall_s=wall, realtime_factor=fed_s / wall)
+    if fed_s == dur:
+        e.update(position_gates(rx.status, scen))
+    else:
+        dop = trk.state.carrier_doppler.cpu().numpy()
+        errs = [abs(float(dop[c]) - scen.truth_at(
+            g_prn, trk.pos_abs[c])["doppler_hz"])
+            for c, g_prn in ((c, rx.groups[0].channel_prn[c]) for c in act)]
+        narrow = sum(trk.ctl[c].phase == ChannelPhase.NARROW for c in act)
+        e.update(locked=len(act), narrow=int(narrow),
+                 max_doppler_err_hz=max(errs, default=math.inf))
+        if not (narrow >= 4 and e["max_doppler_err_hz"] < 5.0):
+            raise AssertionError(f"KF run fails its 12 s gates: {e}")
+    emit("e2e_kf_gps8", **e)
+    hold_correlator_block("e2e_kf_gps8", rec["correlator"], kernels,
+                          "correlator_kf")
+    kernels["correlator_kf"]["launches"] = n3
+    return e
+
+
+def conf_cli_run(run: str, conf: Path, scen, ref_first: dict,
+                 delay_offset: float = 0.0) -> dict:
+    """The .conf/CLI entry point on ``conf`` through K1, held to the
+    position gates and to ``ref_first`` (phase 7's first acquisition: the
+    same satellites, Doppler within one bin, delay within one sample once
+    ``delay_offset`` samples, a filter's group delay, are taken off).
+    Times each plan's loop closer (``after_block``) where it has one and
+    reports its share of the wall."""
+    from gnss_sdr_tpu_torch import main as cli
+    from gnss_sdr_tpu_torch.config.configuration import FileConfiguration
+    from gnss_sdr_tpu_torch.ops import correlator as k3
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver
+    from gnss_sdr_tpu_torch.tracking.tracker import Tracker
+
+    blocks, made, acquisitions, closer_s = [0], [], [], [0.0]
+    process, init, acquire = (Tracker.process_device, Receiver.__init__,
+                              Receiver.acquire)
+
+    def counted(self, *a):
+        r = process(self, *a)
+        blocks[0] += 1
+        return r
+
+    def recorded(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+        for g in self.groups:
+            if g.loop_closer is not None:
+                after = g.loop_closer.after_block
+
+                def timed(*b, _after=after):
+                    t = time.perf_counter()
+                    _after(*b)
+                    closer_s[0] += time.perf_counter() - t
+
+                g.loop_closer.after_block = timed
+
+    def acquired(self, *a, **kw):
+        started = acquire(self, *a, **kw)
+        acquisitions.append(started)
+        return started
+
+    Tracker.process_device = counted
+    Receiver.__init__ = recorded
+    Receiver.acquire = acquired
+    k1.track_blocked.launches = 0
+    k3.correlator.launches = 0
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            status = cli.run_from_config(FileConfiguration(conf))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+    finally:
+        Tracker.process_device = process
+        Receiver.__init__ = init
+        Receiver.acquire = acquire
+    n1, n3 = k1.track_blocked.launches, k3.correlator.launches
+    if not (blocks[0] > 0 and n1 == blocks[0] and n3 == 0):
+        raise AssertionError(f"{run}: {n1} K1 and {n3} K3 launches for "
+                             f"{blocks[0]} blocks")
+    first = acquisitions[0]
+    spc = made[-1].groups[0].plan.acq_conf.samples_per_code
+    step = made[-1].groups[0].plan.acq_conf.doppler_step_hz
+    dd = [abs(first[k][0] - ref_first[k][0]) for k in first
+          if k in ref_first]
+    lags = [abs(first[k][1] - delay_offset - ref_first[k][1]) % spc
+            for k in first if k in ref_first]
+    ld = [min(d, spc - d) for d in lags]
+    e = dict(position_gates(status, scen), blocks=blocks[0], k1_launches=n1,
+             first_acquired=sorted(p for _, p in first),
+             phase7_first_acquired=sorted(p for _, p in ref_first),
+             doppler_diff_hz=max(dd, default=0.0),
+             delay_diff_samples=max(ld, default=0.0),
+             delay_offset_samples=delay_offset,
+             trk_engine=made[-1].groups[0].plan.trk_engine,
+             closer_s=closer_s[0], closer_share=closer_s[0] / wall,
+             wall_s=wall, realtime_factor=scen.cfg.duration_s / wall)
+    emit(run, **e)
+    if not (set(first) == set(ref_first) and e["doppler_diff_hz"] <= step
+            and e["delay_diff_samples"] <= 1.0):
+        raise AssertionError(f"{run}: first acquisition differs from "
+                             f"phase 7's: {e}")
+    return e
+
+
+def gaussian_cli_phase(cap: Path, scen, ref_first, tmp: Path) -> dict:
+    """Phase 35: conf/gps_l1_gaussian.conf's keys (GPS_L1_CA_Gaussian_
+    Tracking: the CKF loop closer after each block) on phase 7's ibyte
+    copy of gps8's capture ``cap``, through K1 (conf_cli_run)."""
+    text = (ROOT / "conf" / "gps_l1_gaussian.conf").read_text().replace(
+        "SignalSource.filename=./capture_l1.dat",
+        f"SignalSource.filename={cap}")
+    if str(cap) not in text:
+        raise AssertionError("conf/gps_l1_gaussian.conf has no filename key")
+    conf = tmp / "gps_l1_gaussian.conf"
+    conf.write_text(text + f"SignalSource.sampling_frequency={int(FS)}\n")
+    e = conf_cli_run("cli_gaussian", conf, scen, ref_first)
+    if e["trk_engine"] != "gaussian":
+        raise AssertionError(f"the Gaussian conf built {e['trk_engine']}")
+    return e
+
+
+def tcp_phase() -> dict:
+    """Phase 36: tests/test_tcp_connector.py's loop on the card: the
+    tracker's internal loops dead, the NCO moved only by
+    SimpleLoopServer's commands over a localhost socket, with that test's
+    gates (> 30 records, the 4 Hz error pulled within 2 Hz, moved by more
+    than 2 Hz)."""
+    from gnss_sdr_tpu_torch.codes.gps_l1_ca import gps_l1_ca_code_table
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.simulate import (
+        SatelliteSignalParams,
+        generate_baseband,
+    )
+    from gnss_sdr_tpu_torch.tracking import DllPllConf, Tracker
+    from gnss_sdr_tpu_torch.tracking.tcp_connector import (
+        SimpleLoopServer,
+        TcpConnectorTracking,
+        TcpLoopClient,
+    )
+
+    true_dop = 640.0
+    sat = SatelliteSignalParams(prn=9, cn0_dbhz=48.0, doppler_hz=true_dop,
+                                delay_chips=120.0)
+    x = generate_baseband([sat], FS, int(FS * 1.5), seed=9)
+    conf = DllPllConf(fs=FS, code_length_chips=1023, code_rate_cps=1.023e6,
+                      carrier_freq_hz=1575.42e6, pll_bw_hz=1e-4,
+                      dll_bw_hz=1e-5, enable_fll_pull_in=False,
+                      max_channels=2, steps_per_block=10)
+    srv = SimpleLoopServer(pll_bw_hz=8.0)
+    tracker = Tracker(conf, gps_l1_ca_code_table())
+    tracker.start_channel(ch=0, prn=9, code_row=8,
+                          acq_delay_samples=120.0 * FS / 1.023e6,
+                          acq_doppler_hz=true_dop - 4.0,
+                          acq_samplestamp=0, current_abs_sample=0)
+    tcp = TcpConnectorTracking(tracker, TcpLoopClient(port=srv.port), [0])
+    k1.track_blocked.launches = 0
+    dops = []
+    t = time.perf_counter()
+    try:
+        while True:
+            base, w = tracker.window_request()
+            if base + w > len(x):
+                break
+            r = tcp.process(x[base:base + w], base)
+            dops.append(float(r.outputs["carrier_doppler"][-1, 0]))
+    finally:
+        tcp.client.close()
+        srv.close()
+    e = dict(records=srv.records_seen, blocks=len(dops),
+             k1_launches=k1.track_blocked.launches,
+             first_doppler_hz=dops[0], last_doppler_hz=dops[-1],
+             wall_s=time.perf_counter() - t)
+    emit("tcp_loop", **e)
+    if not (srv.records_seen > 30 and abs(dops[-1] - true_dop) < 2.0
+            and abs(dops[0] - dops[-1]) > 2.0
+            and k1.track_blocked.launches == len(dops)):
+        raise AssertionError(f"TCP loop fails its gates: {e}")
+    return e
+
+
+def xlating_cli_phase(capture, scen, ref_first, tmp: Path) -> dict:
+    """Phase 37a: gps8's capture moved to an IF of +250 kHz in NumPy,
+    written as ibyte, through the CLI with conf/gps_l1_file.conf's keys
+    and a Freq_Xlating_Fir_Filter at that IF (IF_TAPS taps, on the card),
+    through K1 (conf_cli_run: the acquired delays lag phase 7's by the
+    FIR's group delay)."""
+    from gnss_sdr_tpu_torch.io import encode_samples
+
+    t0 = time.perf_counter()
+    cap = tmp / "capture_if.dat"
+    step = 1 << 22
+    with open(cap, "wb") as f:
+        for s in range(0, len(capture), step):
+            k = np.arange(s, min(s + step, len(capture)))
+            y = capture[s:s + step] * np.exp(2j * np.pi * IF_HZ / FS * k)
+            f.write(encode_samples(np.round(y * 16), "ibyte"))
+    text = (ROOT / "conf" / "gps_l1_file.conf").read_text().replace(
+        "SignalSource.filename=./capture_l1.dat",
+        f"SignalSource.filename={cap}").replace(
+        "InputFilter.implementation=Pass_Through",
+        "InputFilter.implementation=Freq_Xlating_Fir_Filter\n"
+        f"InputFilter.IF={int(IF_HZ)}\nInputFilter.taps_length={IF_TAPS}")
+    if "Freq_Xlating" not in text or str(cap) not in text:
+        raise AssertionError("conf/gps_l1_file.conf lacks the keys to edit")
+    text += "".join(f"PVT.{k}={tmp / v}\n" for k, v in (
+        ("kml_dump_filename", "pvt_if.kml"),
+        ("rinex_obs_filename", "obs_if.rnx"),
+        ("rinex_nav_filename", "nav_if.rnx")))
+    conf = tmp / "gps_l1_if.conf"
+    conf.write_text(text)
+    emit("cli_if_capture", seconds=time.perf_counter() - t0, if_hz=IF_HZ,
+         bytes=cap.stat().st_size)
+    return conf_cli_run("cli_freq_xlating", conf, scen, ref_first,
+                        delay_offset=(IF_TAPS - 1) / 2)
+
+
+def conditioner_stages_phase(capture) -> dict:
+    """Phase 37b: 1 s of gps8's capture (with a CW tone and pulses added)
+    through each conditioner stage on the card and on the CPU: the FIR
+    with decimation 2, the notch, pulse blanking, both resamplers (2.6 to
+    2.046 Msps) and a 4-element beamformer (the capture with per-element
+    steering phases); each within 1e-5 of the CPU output's largest sample
+    (the direct resampler and pulse blanking equal), timed on the card."""
+    from gnss_sdr_tpu_torch import conditioner as tc
+
+    x = capture[:int(FS)].astype(np.complex64)
+    x = x + (3.0 * np.exp(2j * np.pi * 0.11 * np.arange(x.size))).astype(
+        np.complex64)
+    x[::9973] *= 40.0
+    taps = tc.design_fir(65, FS, (0.0, 0.45 * FS / 2)).astype(np.float32)
+    ratio = FS / 2.046e6
+    n_out = int((x.size - 10) / ratio)
+    w = tc.steering_weights(4, 0.5, 20.0)
+    xs = np.stack([x * np.conj(w[k]) * 2.0 for k in range(4)])
+    stages = {
+        "fir_decim2": lambda v, d: tc.fir_apply(v, torch.as_tensor(
+            taps, device=d), 2),
+        "notch": lambda v, d: tc.notch_filter_block(v),
+        "pulse_blanking": lambda v, d: tc.pulse_blanking_block(v),
+        "direct_resample": lambda v, d: tc.direct_resample(v, ratio, n_out),
+        "polyphase_resample": lambda v, d: tc.polyphase_resample(
+            v, ratio, n_out, 4.0),
+    }
+    out = {}
+    for name, fn in stages.items():
+        a = fn(torch.as_tensor(x), "cpu").numpy()
+        xd = torch.as_tensor(x, device="cuda")
+        b = fn(xd, "cuda").cpu().numpy()
+        ms = cuda_ms(lambda: fn(xd, "cuda"), 5, name=f"conditioner {name}")
+        err = float(np.abs(a - b).max() / np.abs(a).max())
+        exact = name in ("direct_resample", "pulse_blanking")
+        out[name] = dict(rel_err=err, ms=ms, samples=x.size)
+        emit("conditioner_stage", stage=name, **out[name])
+        if not (a.shape == b.shape and (np.array_equal(a, b) if exact
+                                        else err <= 1e-5)):
+            raise AssertionError(f"conditioner {name}: card and CPU "
+                                 f"disagree ({err})")
+    a = tc.Beamformer(w, device="cpu").process(xs)
+    bf = tc.Beamformer(w)
+    b = bf.process(xs)
+    err = float(np.abs(a - b).max() / np.abs(a).max())
+    out["beamformer"] = dict(rel_err=err, elements=4,
+                             gain_vs_element=float(np.abs(b).mean()
+                                                   / np.abs(xs[0]).mean()))
+    emit("conditioner_stage", stage="beamformer", **out["beamformer"])
+    if not err <= 1e-5:
+        raise AssertionError(f"beamformer: card and CPU disagree ({err})")
+    return out
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3421,8 +4034,9 @@ def main() -> int:
          realtime_factor=6.0 / wall6)
 
     # ---- 7. the .conf/CLI path, through K1 and through K2 ----------------
-    with tempfile.TemporaryDirectory() as tmp:
-        runs = cli_phase(capture, scen, Path(tmp))
+    # (its ibyte copy of the capture is read again by phase 35)
+    gps_tmp = tempfile.TemporaryDirectory()
+    runs = cli_phase(capture, scen, Path(gps_tmp.name))
     kernels["track_full"]["launches"] = runs["track_full"]["k2_launches"]
 
     # ---- 8. K4 against its plain version ---------------------------------
@@ -3508,7 +4122,27 @@ def main() -> int:
     # ---- 31. mc64 at bench.py's settings ---------------------------------
     mc64_phase(gal_caps, kernels)
 
-    # ---- 32. kernels -----------------------------------------------------
+    # ---- 32. the acquisition engines against PCPS; the ROC sweep ---------
+    acq_engines_phase(capture, scen, gal_caps)
+
+    # ---- 33. the Kalman mode's Tracker cases (eager engine, K3) ----------
+    kf_cases_phase()
+
+    # ---- 34. gps8 with GPS_L1_CA_KF_Tracking (eager engine, K3) ----------
+    kf_receiver_phase(capture, scen, kernels)
+
+    # ---- 35-37. the Gaussian closer and the IF-shifted capture through the
+    # CLI (K1), the TCP loop, the conditioner stages on card and CPU -------
+    with tempfile.TemporaryDirectory() as tmp:
+        gaussian_cli_phase(Path(gps_tmp.name) / "capture_l1.dat", scen,
+                           runs["first_acquired"], Path(tmp))
+    gps_tmp.cleanup()
+    tcp_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        xlating_cli_phase(capture, scen, runs["first_acquired"], Path(tmp))
+    conditioner_stages_phase(capture)
+
+    # ---- 38. kernels -----------------------------------------------------
     meta = {
         "track_blocked": dict(
             route="cuda", source="gnss_sdr_tpu_torch/csrc/track_blocked.cu",
@@ -3543,6 +4177,7 @@ def main() -> int:
         meta[f"track_blocked_{case}"] = meta["track_blocked"]
     meta["track_full_bds"] = meta["track_full"]
     meta["correlator_bds"] = meta["correlator"]
+    meta["correlator_kf"] = meta["correlator"]
     for n in meta:
         if not kernels[n].get("launches"):
             raise AssertionError(f"{n}: no launch on its path")

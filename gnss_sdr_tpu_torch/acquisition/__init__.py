@@ -1,6 +1,13 @@
 """Acquisition engines (reference: src/algorithms/acquisition/)."""
 
-from gnss_sdr_tpu_torch.acquisition.engines import AssistedAcquisition
+from gnss_sdr_tpu_torch.acquisition.engines import (
+    AssistedAcquisition,
+    CccwsrAcquisition,
+    FineDopplerAcquisition,
+    NoncoherentIQAcquisition,
+    QuickSyncAcquisition,
+    TongAcquisition,
+)
 from gnss_sdr_tpu_torch.acquisition.pcps import (
     AcqConfig,
     AcqResults,
@@ -9,4 +16,6 @@ from gnss_sdr_tpu_torch.acquisition.pcps import (
 )
 
 __all__ = ["AcqConfig", "AcqResults", "AssistedAcquisition",
-           "PcpsAcquisition", "threshold_from_pfa"]
+           "CccwsrAcquisition", "FineDopplerAcquisition",
+           "NoncoherentIQAcquisition", "PcpsAcquisition",
+           "QuickSyncAcquisition", "TongAcquisition", "threshold_from_pfa"]

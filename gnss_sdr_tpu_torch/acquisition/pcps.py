@@ -275,15 +275,17 @@ class PcpsAcquisition:
         dist = torch.minimum((lags - lag) % spc, (lag - lags) % spc)
         return torch.where(dist <= excl, -math.inf, g).max(dim=1).values
 
-    def _refine(self, x, prn_idx, center_dop):
+    def _refine(self, x, prn_idx, center_dop, step2_hz=None):
         """Second-step narrow Doppler zoom around each channel's coarse
-        peak (reference make_2_steps / num_doppler_bins_step2)."""
+        peak (reference make_2_steps / num_doppler_bins_step2).
+        ``step2_hz`` overrides the configured fine step for this call (the
+        iterative fine-Doppler engine, ``acquisition/engines.py``)."""
         conf = self.conf
         spc = conf.samples_per_code
         nb2 = 2 * conf.num_doppler_bins_step2 + 1
+        step = conf.doppler_step2_hz if step2_hz is None else step2_hz
         offs = (torch.arange(nb2, dtype=torch.float32, device=x.device)
-                - conf.num_doppler_bins_step2) * np.float32(
-                    conf.doppler_step2_hz)
+                - conf.num_doppler_bins_step2) * np.float32(step)
         off = self._row_offsets(prn_idx)
         center = center_dop if off is None else center_dop + off
         dops = center[:, None] + offs[None, :]                # [C, B2]

@@ -2,12 +2,10 @@
 
 Counterpart of ``gnss_sdr_tpu/receiver/factory.py``, with the same
 implementation-string tables, property names and defaults; every
-``Channels_XX`` group builds its plan. What the port does not carry yet
-raises ``NotImplementedError`` naming its ROADMAP queue item: the
-SignalGenerator source and the beamformer; the conditioner raises for
-its filters and resamplers, and the receiver for acquisition and tracking
-variants other than PCPS and DLL/PLL. The conditioner runs on ``device``
-("cuda" unless the caller asks for "cpu").
+``Channels_XX`` group builds its plan, every source, input filter,
+resampler and beamformer the JAX factory builds is built here. The
+conditioner runs on ``device`` ("cuda" unless the caller asks for
+"cpu").
 
 Reference: src/core/receiver/gnss_block_factory.{h,cc} (GetSignalSource,
 GetSignalConditioner, GetChannels, GetObservables, GetPVT, GetBlock,
@@ -199,10 +197,21 @@ def get_signal_source(cfg: ConfigurationInterface, role: str = "SignalSource"):
         ]
         return MultichannelFileSignalSource(metas)
     if impl == "SignalGenerator":
-        # simulate/generator.py (multi-signal baseband synthesis) is not
-        # copied into the port yet
-        raise NotImplementedError(
-            f"{role}.implementation=SignalGenerator (ROADMAP queue item 16)")
+        from gnss_sdr_tpu_torch.io import GeneratorSignalSource
+        from gnss_sdr_tpu_torch.simulate import SatelliteSignalParams
+
+        n_sats = cfg.property(f"{role}.num_satellites", 1)
+        sats = []
+        for i in range(n_sats):
+            sats.append(SatelliteSignalParams(
+                prn=cfg.property(f"{role}.PRN_{i}", i + 1),
+                cn0_dbhz=cfg.property(f"{role}.CN0_dB_{i}", 44.0),
+                doppler_hz=cfg.property(f"{role}.doppler_Hz_{i}", 0.0),
+                delay_chips=cfg.property(f"{role}.delay_chips_{i}", 0.0),
+            ))
+        dur = cfg.property(f"{role}.duration_s", 10.0)
+        return GeneratorSignalSource(sats, fs, int(dur * fs),
+                                     seed=cfg.property(f"{role}.seed", 0))
     raise UnknownImplementation(f"{role}.implementation={impl!r}")
 
 
@@ -274,9 +283,33 @@ def get_signal_conditioner(cfg: ConfigurationInterface,
     elif filt_impl == "Pulse_Blanking_Filter":
         blanking = True
     elif filt_impl == "Beamformer_Filter":
-        raise NotImplementedError(
-            "InputFilter.implementation=Beamformer_Filter (ROADMAP queue "
-            "item 13)")
+        # array conditioner: beamform the element streams, then condition
+        import numpy as _np
+
+        from gnss_sdr_tpu_torch.conditioner.beamformer import (
+            ArrayConditioner,
+            Beamformer,
+            steering_weights,
+        )
+
+        n_elem = p("InputFilter", "number_of_channels", 8)
+        if cfg.has_property(f"InputFilter{suffix}.weight0_real") or (
+                not suffix and cfg.has_property("InputFilter.weight0_real")):
+            weights = _np.asarray([
+                complex(p("InputFilter", f"weight{i}_real", 1.0),
+                        p("InputFilter", f"weight{i}_imag", 0.0))
+                for i in range(n_elem)
+            ], dtype=_np.complex64)
+        else:
+            weights = steering_weights(
+                n_elem,
+                p("InputFilter", "spacing_wavelengths", 0.5),
+                p("InputFilter", "steer_deg", 0.0))
+        # multichannel sources decode to complex already; the inner chain
+        # conditions the beamformed complex stream
+        inner = SignalConditioner(ConditionerConfig(
+            input_format="passthrough", fs_in=fs_in), device=device)
+        return ArrayConditioner(Beamformer(weights, device=device), inner)
     elif filt_impl != "Pass_Through":
         raise UnknownImplementation(f"InputFilter.implementation={filt_impl!r}")
 

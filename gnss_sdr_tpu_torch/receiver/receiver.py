@@ -14,10 +14,15 @@ orchestration plays the roles of the reference's
 ControlThread event loop and GNSSFlowgraph channel management around the
 batched device engines:
 
-- signals are grouped by SignalPlan; each plan owns one batched PCPS
-  engine and one batched Tracker (all its channels in one device batch);
-  a satellite already tracked on another carrier is searched by a narrow
-  assisted engine around its projected Doppler;
+- signals are grouped by SignalPlan; each plan owns one batched
+  acquisition engine (PCPS, fine-Doppler, Tong, QuickSync, CCCWSR or
+  noncoherent I/Q, ``plan.acq_engine``) and one batched Tracker (all its
+  channels in one device batch); on PCPS plans a satellite already
+  tracked on another carrier is searched by a narrow assisted engine
+  around its projected Doppler;
+- a plan's loop-closure variant (``plan.trk_engine``: the CKF/UKF
+  ``GaussianLoopCloser`` or the TCP connector) reads each block's outputs
+  and writes the tracker's NCO state before the next block;
 - telemetry: per-channel decoders (LNAV, I/NAV, CNAV, F/NAV, GNAV, D1,
   D2, SBAS, the E6B page stream) fed with
   prompt signs, on pilot plans with the data component's symbols once the
@@ -32,9 +37,7 @@ the trackers read in place.
 Everything runs on ``ReceiverConfig.device`` ("cuda" by default; without a
 card that raises unless "cpu" is asked for). Options the port does not
 carry yet raise ``NotImplementedError`` when switched on: multiple devices,
-OSNMA, PPP positioning, the PVT Kalman filter, loop-closure variants other
-than DLL/PLL (ROADMAP queue item 12), acquisition engines other than PCPS
-(item 11) and dumps.
+OSNMA, PPP positioning, the PVT Kalman filter and dumps.
 """
 
 from __future__ import annotations
@@ -45,7 +48,15 @@ import numpy as np
 import torch
 
 from gnss_sdr_tpu_torch import resolve_device
-from gnss_sdr_tpu_torch.acquisition import AssistedAcquisition, PcpsAcquisition
+from gnss_sdr_tpu_torch.acquisition import (
+    AssistedAcquisition,
+    CccwsrAcquisition,
+    FineDopplerAcquisition,
+    NoncoherentIQAcquisition,
+    PcpsAcquisition,
+    QuickSyncAcquisition,
+    TongAcquisition,
+)
 from gnss_sdr_tpu_torch.io.device_stream import DeviceStream
 from gnss_sdr_tpu_torch.observables.engine import ObservablesEngine
 from gnss_sdr_tpu_torch.pvt.atmosphere import KlobucharParams
@@ -129,33 +140,80 @@ def _rows(prns: list[int], res) -> list[tuple]:
             for i, p in enumerate(prns)]
 
 
+def _acquisition_engine(plan: SignalPlan, device: torch.device):
+    """The plan's batched acquisition engine (``plan.acq_engine``), built
+    as the JAX receiver builds it."""
+    acq_table = (plan.acq_code_table if plan.acq_code_table is not None
+                 else plan.code_table)
+    prns = list(plan.search_prns)
+    params = dict(plan.acq_engine_params)
+    engine = plan.acq_engine
+    if engine == "pcps":
+        return PcpsAcquisition(plan.acq_conf, acq_table, prns,
+                               freq_offset_table=plan.freq_offset_table,
+                               device=device)
+    if engine in ("fine_doppler", "tong"):
+        cls = (FineDopplerAcquisition if engine == "fine_doppler"
+               else TongAcquisition)
+        return cls(plan.acq_conf, acq_table, prns,
+                   freq_offset_table=plan.freq_offset_table, device=device,
+                   **params)
+    if engine == "quicksync":
+        return QuickSyncAcquisition(plan.acq_conf, acq_table, prns,
+                                    device=device, **params)
+    if engine == "cccwsr":
+        chips = params.pop("chips_table")
+        return CccwsrAcquisition(plan.acq_conf, chips, prns, device=device,
+                                 **params)
+    if engine == "noncoh_iq":
+        # the data (I) table is the acquisition table, the pilot (Q) the
+        # tracking table on pilot plans
+        return NoncoherentIQAcquisition(plan.acq_conf, acq_table,
+                                        plan.code_table, prns,
+                                        device=device, **params)
+    raise ValueError(f"unknown acq_engine {engine!r}")
+
+
+def _loop_closer(plan: SignalPlan, device: torch.device):
+    """The plan's block-cadence loop-closure variant (``plan.trk_engine``),
+    or None for the plain DLL/PLL: it reads each block's host outputs and
+    writes the tracker's NCO state before the next block."""
+    p = dict(plan.trk_engine_params)
+    if plan.trk_engine == "gaussian":
+        from gnss_sdr_tpu_torch.tracking.gaussian import GaussianLoopCloser
+
+        return GaussianLoopCloser(plan.num_channels,
+                                  plan.trk_conf.code_period_s,
+                                  device=device, **p)
+    if plan.trk_engine == "tcp":
+        from gnss_sdr_tpu_torch.tracking.tcp_connector import (
+            TcpConnectorTracking,
+            TcpLoopClient,
+        )
+
+        client = TcpLoopClient(address=p.get("address", "127.0.0.1"),
+                               port=int(p.get("port", 2060)))
+        return TcpConnectorTracking(None, client,
+                                    list(range(plan.num_channels)))
+    return None
+
+
 class SignalGroup:
     """One signal type's engines + per-channel decode state."""
 
     def __init__(self, plan: SignalPlan, chan_offset: int,
                  device: torch.device) -> None:
-        for on, what in ((plan.acq_engine != "pcps",
-                          f"acquisition engine {plan.acq_engine!r} (ROADMAP "
-                          "queue item 11)"),
-                         (plan.trk_engine != "dll_pll",
-                          f"tracking engine {plan.trk_engine!r} (ROADMAP "
-                          "queue item 12)"),
-                         (bool(plan.dump_filename or plan.acq_dump_filename),
-                          "dumps")):
-            if on:
-                raise NotImplementedError(f"receiver: {what}")
+        if plan.dump_filename or plan.acq_dump_filename:
+            raise NotImplementedError("receiver: dumps")
         self.plan = plan
         self.offset = chan_offset           # global channel index base
-        acq_table = (plan.acq_code_table if plan.acq_code_table is not None
-                     else plan.code_table)
-        self.acq = PcpsAcquisition(
-            plan.acq_conf, acq_table, list(plan.search_prns),
-            freq_offset_table=plan.freq_offset_table, device=device)
+        self.acq = _acquisition_engine(plan, device)
         self.tracker = Tracker(
             plan.trk_conf, plan.code_table,
             data_code_table=plan.data_code_table,
             sec_pilot_table=plan.sec_pilot_table,
             sec_data_levels=plan.sec_data_levels, device=device)
+        self.loop_closer = _loop_closer(plan, device)
         # narrow engine for satellites tracked on another band, built on
         # first use (Receiver._assisted_engine)
         self.assisted_acq: AssistedAcquisition | None = None
@@ -299,7 +357,9 @@ class Receiver:
 
     def _acquire_group(self, g: SignalGroup, at_sample: int | None) -> dict:
         plan = g.plan
-        n = g.acq.conf.input_samples
+        # engine variants may consume a different window than the base conf
+        # (Tong: max_attempts dwells; QuickSync/CCCWSR: their own .win)
+        n = getattr(g.acq, "win", None) or g.acq.conf.input_samples
         start = self._buf_bases[plan.band] if at_sample is None else at_sample
         x = self._slice(plan.band, start, n)
         if x is None:
@@ -315,7 +375,8 @@ class Receiver:
         # instead of the full cold grid
         proj = self._project_doppler(g)
         prns_assist = [p for p in prns if p in proj] if (
-            plan.freq_offset_table is None and proj) else []
+            plan.acq_engine == "pcps" and plan.freq_offset_table is None
+            and proj) else []
         prns_cold = [p for p in prns if p not in prns_assist]
 
         results = []                    # (prn, det, stat, dop, delay)
@@ -371,6 +432,9 @@ class Receiver:
             )
             g.channel_prn[ch] = prn
             g.decoders[prn] = plan.make_decoder(prn)
+            if g.loop_closer is not None and hasattr(g.loop_closer,
+                                                     "reset_channel"):
+                g.loop_closer.reset_channel(ch)
             log.info(
                 "acq %s%02d %s: doppler %+.0f Hz delay %.1f -> channel %d",
                 plan.system, prn, plan.name, dop_hz, delay_sp,
@@ -458,6 +522,8 @@ class Receiver:
                     self._drop_laggard(g)
                     continue
                 progressed = True
+                if g.loop_closer is not None:
+                    g.loop_closer.after_block(g.tracker, result)
                 self._handle_block(g, result)
             if not progressed:
                 break

@@ -31,8 +31,16 @@ FDMA (GLONASS): the per-channel slot offset ``carrier_offset`` rides on
 the Doppler. As in the JAX engine (which keeps FDMA off its Pallas
 correlator), the wipeoff phase is computed per sample in float64, reduced
 mod 2 pi, cast to float32 and applied to the samples in torch; K3 then
-runs with a zero phase and step, which leaves each sample as it is. The
-Kalman mode (ROADMAP queue item 12) raises ``NotImplementedError``.
+runs with a zero phase and step, which leaves each sample as it is.
+
+The Kalman mode (``conf.kf``, reference kf_tracking.cc) replaces the
+carrier loop filter with an error-state EKF over [phase error (cycles),
+frequency error (Hz), frequency-rate error (Hz/s)] (``kf_x``, covariance
+``kf_P``) and the DLL filter with a scalar Kalman gain on the
+discriminator (variance ``kf_pc``), updated at integration boundaries in
+float32 in the JAX engine's order of operations. The fused engine does not
+carry it (``tracking/fused.py::fused_eligible``), so every Kalman period
+is one K3 launch.
 """
 
 from __future__ import annotations
@@ -82,6 +90,10 @@ class TrackingState:
     sec_active: torch.Tensor        # bool: secondary wipeoff engaged
     acc_data: torch.Tensor          # c64: data-component accumulator
     acc_data_count: torch.Tensor    # int32: periods in the data accumulator
+    # Kalman tracking mode (conf.kf; reference kf_tracking.cc)
+    kf_x: torch.Tensor              # [C, 3] f32: phase cyc, freq Hz, Hz/s
+    kf_P: torch.Tensor              # [C, 3, 3] f32 carrier state covariance
+    kf_pc: torch.Tensor             # f32: code-delay error variance (chips^2)
 
     def replace(self, **changes) -> TrackingState:
         return dataclasses.replace(self, **changes)
@@ -98,7 +110,12 @@ _DTYPES = {
     "acc_taps": torch.complex64, "acc_samples": torch.int32,
     "sec_idx": torch.int32, "sec_active": torch.bool,
     "acc_data": torch.complex64, "acc_data_count": torch.int32,
+    "kf_x": torch.float32, "kf_P": torch.float32, "kf_pc": torch.float32,
 }
+
+# the Kalman mode's initial carrier covariance and code-delay variance
+KF_P0 = np.diag(np.array([0.01, 2500.0, 100.0], np.float32))
+KF_PC0 = 0.25
 
 
 def init_state(conf: DllPllConf, device) -> TrackingState:
@@ -130,13 +147,15 @@ def init_state(conf: DllPllConf, device) -> TrackingState:
         sec_active=z(c, dtype=torch.bool),
         acc_data=z(c, dtype=torch.complex64),
         acc_data_count=z(c, dtype=torch.int32),
+        kf_x=z(c, 3, dtype=torch.float32),
+        kf_P=torch.tensor(np.tile(KF_P0, (c, 1, 1)), device=device),
+        kf_pc=torch.full((c,), KF_PC0, dtype=torch.float32, device=device),
     )
 
 
 def state_from_numpy(d: dict, device) -> TrackingState:
     """A state from numpy arrays in the JAX package's layout (complex
-    leaves as float32 [..., 2] re/im lanes). Keys the port does not carry
-    (the Kalman mode's) are ignored."""
+    leaves as float32 [..., 2] re/im lanes)."""
     leaves = {}
     for name, dtype in _DTYPES.items():
         a = np.asarray(d[name])
@@ -164,14 +183,6 @@ def tap_offsets_chips(conf: DllPllConf) -> np.ndarray:
         v = conf.very_early_late_spacing_chips / 2.0
         return np.array([-v, -d, 0.0, d, v], dtype=np.float32)
     return np.array([-d, 0.0, d], dtype=np.float32)
-
-
-def check_supported(conf: DllPllConf) -> None:
-    """Raise for the mode this engine does not carry, naming the ROADMAP
-    queue item that ports it."""
-    if conf.kf:
-        raise NotImplementedError(
-            "tracking: the Kalman tracking mode (ROADMAP queue item 12)")
 
 
 def fdma_wipe(x: torch.Tensor, st: TrackingState, fs: float) -> torch.Tensor:
@@ -210,7 +221,6 @@ def track_block(
 ) -> tuple[TrackingState, dict]:
     """Run ``conf.steps_per_block`` code periods for all channels; returns
     the new state and a dict of per-period outputs ([S, C]-shaped)."""
-    check_supported(conf)
     dev = window.device
     n_max = conf.max_step_samples
     code_len = float(conf.code_length_chips)
@@ -236,6 +246,8 @@ def track_block(
     w0f2 = const(w0f * w0f)
     pll_bws = const(conf.pll_bw_narrow_hz), const(conf.pll_bw_hz)
     dll_bws = const(conf.dll_bw_narrow_hz), const(conf.dll_bw_hz)
+    if conf.kf:
+        kf_consts = _kf_constants(conf, const)
     st = state
     steps = []
     for _ in range(conf.steps_per_block):
@@ -335,14 +347,20 @@ def track_block(
                                 l_acc.imag, conf.early_late_spacing_chips)
         dll_st_new, dll_out = loop_filter_step(
             st.dll_state, code_err, dll_bw, t_int, conf.dll_filter_order)
-        doppler_new = torch.where(boundary, pll_out, st.carrier_doppler)
-        # carrier-aided code NCO (reference run_dll_pll code freq update)
-        aid = doppler_new.to(torch.float64) * (
-            conf.code_rate_cps / conf.carrier_freq_hz)
-        code_freq_new = torch.where(
-            boundary,
-            conf.code_rate_cps + aid - dll_out.to(torch.float64),
-            st.code_freq)
+        if conf.kf:
+            (doppler_new, code_freq_new, kf_phase_corr, kf_x_new, kf_P_new,
+             kf_pc_new) = _kf_update(conf, kf_consts, st, boundary, t_int,
+                                     carr_err, freq_err, code_err)
+        else:
+            doppler_new = torch.where(boundary, pll_out, st.carrier_doppler)
+            # carrier-aided code NCO (reference run_dll_pll code freq update)
+            aid = doppler_new.to(torch.float64) * (
+                conf.code_rate_cps / conf.carrier_freq_hz)
+            code_freq_new = torch.where(
+                boundary,
+                conf.code_rate_cps + aid - dll_out.to(torch.float64),
+                st.code_freq)
+            kf_x_new, kf_P_new, kf_pc_new = st.kf_x, st.kf_P, st.kf_pc
 
         # ---- advance the NCO state by the consumed period ----------------
         nf64 = n.to(torch.float64)
@@ -350,6 +368,8 @@ def track_block(
         if conf.fdma:
             nco_freq = nco_freq + st.carrier_offset
         carrier_phase = st.carrier_phase + (2.0 * np.pi / fs) * nco_freq * nf64
+        if conf.kf:
+            carrier_phase = carrier_phase + kf_phase_corr
         rem_new = st.rem_code_phase + nf64 * code_step - code_len
         rem_new = torch.where(rem_new < 0.0, rem_new + code_len, rem_new)
 
@@ -373,6 +393,9 @@ def track_block(
             acc_data=torch.where(data_boundary, 0, acc_data),
             acc_data_count=torch.where(data_boundary, 0,
                                        acc_data_count).to(torch.int32),
+            kf_x=kf_x_new,
+            kf_P=kf_P_new,
+            kf_pc=kf_pc_new,
         )
         steps.append({
             "prompt": corr[:, p_idx],
@@ -393,3 +416,85 @@ def track_block(
         st = new_state
     outs = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
     return st, outs
+
+
+def _kf_constants(conf: DllPllConf, const) -> dict:
+    """The Kalman mode's float32 noise constants as 0-dim device tensors."""
+    return {
+        "t_min": const(1e-6),
+        "q": const(conf.kf_accel_std_hz_s2 ** 2),
+        "r_phase": const(conf.kf_meas_std_cycles ** 2),
+        "r_freq": const(conf.kf_freq_meas_std_hz ** 2),
+        "r_off": (const(1e9), const(1e12)),
+        "qc": const(conf.kf_code_process_std_chips ** 2),
+        "rc": const(conf.kf_code_meas_std_chips ** 2),
+        "two_pi": const(2.0 * np.pi),
+    }
+
+
+def _kf_update(conf: DllPllConf, k: dict, st: TrackingState,
+               boundary: torch.Tensor, t_int: torch.Tensor,
+               carr_err: torch.Tensor, freq_err: torch.Tensor,
+               code_err: torch.Tensor):
+    """Kalman carrier and code update at integration boundaries (the JAX
+    engine's ``conf.kf`` branch, reference kf_tracking.cc).
+
+    Error-state EKF: x = [phase err (cycles), freq err (Hz), freq-rate err
+    (Hz/s)] relative to the commanded NCO. The PLL discriminator measures
+    x0; the FLL discriminator measures x1 (enabled while fll_active via its
+    R). After the update the frequency-error estimate moves into the NCO
+    frequency and the phase-error estimate into the NCO phase, which zeroes
+    those error states; the covariance is unchanged by that transfer. The
+    code loop is a scalar Kalman gain on the DLL discriminator plus carrier
+    aiding. Returns (Doppler, code frequency, float64 phase correction,
+    kf_x, kf_P, kf_pc), each already selected by ``boundary``."""
+    T = torch.maximum(t_int, k["t_min"])                        # [C]
+    one = torch.ones_like(T)
+    zero = torch.zeros_like(T)
+    F = torch.stack([
+        torch.stack([one, T, 0.5 * T * T], -1),
+        torch.stack([zero, one, T], -1),
+        torch.stack([zero, zero, one], -1),
+    ], dim=-2)                                                  # [C, 3, 3]
+    T2 = T * T
+    T3 = T2 * T
+    Q = k["q"] * torch.stack([
+        torch.stack([T3 * T2 / 20, T2 * T2 / 8, T3 / 6], -1),
+        torch.stack([T2 * T2 / 8, T3 / 3, T2 / 2], -1),
+        torch.stack([T3 / 6, T2 / 2, T], -1),
+    ], dim=-2)                                                  # [C, 3, 3]
+    x_pred = torch.einsum("cij,cj->ci", F, st.kf_x)
+    P_pred = torch.einsum("cik,clk->cil",
+                          torch.einsum("cij,cjk->cik", F, st.kf_P), F) + Q
+    # update 1: phase discriminator, gated off during FLL pull-in (the
+    # Costas atan wraps every 1/4 cycle; chasing wraps while the frequency
+    # error is still tens of Hz drives false locks)
+    r1 = torch.where(st.fll_active, k["r_off"][0], k["r_phase"])
+    s1 = P_pred[:, 0, 0] + r1
+    k1 = P_pred[:, :, 0] / s1[:, None]                          # [C, 3]
+    x_up = x_pred + k1 * (carr_err - x_pred[:, 0])[:, None]
+    P_up = P_pred - k1[:, :, None] * P_pred[:, None, 0, :]
+    # update 2: frequency discriminator (pull-in only)
+    r2 = torch.where(st.fll_active, k["r_freq"], k["r_off"][1])
+    s2 = P_up[:, 1, 1] + r2
+    k2 = P_up[:, :, 1] / s2[:, None]
+    x_up = x_up + k2 * (freq_err - x_up[:, 1])[:, None]
+    P_up = P_up - k2[:, :, None] * P_up[:, None, 1, :]
+    doppler_new = torch.where(boundary, st.carrier_doppler + x_up[:, 1],
+                              st.carrier_doppler)
+    phase_corr = torch.where(boundary, k["two_pi"] * x_up[:, 0],
+                             zero).to(torch.float64)
+    kf_x = torch.where(boundary[:, None],
+                       torch.stack([zero, zero, x_up[:, 2]], -1), st.kf_x)
+    kf_P = torch.where(boundary[:, None, None], P_up, st.kf_P)
+    # code: scalar Kalman gain on the DLL discriminator + carrier aiding
+    pc_pred = st.kf_pc + k["qc"]
+    kc = pc_pred / (pc_pred + k["rc"])
+    aid = doppler_new.to(torch.float64) * (
+        conf.code_rate_cps / conf.carrier_freq_hz)
+    code_freq = torch.where(
+        boundary,
+        conf.code_rate_cps + aid - (kc * code_err / T).to(torch.float64),
+        st.code_freq)
+    kf_pc = torch.where(boundary, (1.0 - kc) * pc_pred, st.kf_pc)
+    return doppler_new, code_freq, phase_corr, kf_x, kf_P, kf_pc

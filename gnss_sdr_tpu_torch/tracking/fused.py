@@ -69,7 +69,6 @@ from gnss_sdr_tpu_torch.ops.track_kernel_blocked import (
 from gnss_sdr_tpu_torch.tracking.conf import DllPllConf
 from gnss_sdr_tpu_torch.tracking.dll_pll import (
     TrackingState,
-    check_supported,
     tap_offsets_chips,
 )
 
@@ -85,7 +84,6 @@ def build_fused_engine(conf: DllPllConf) -> BlockedSpec:
     names the engine: K1 by default, K2 when ``GNSS_SDR_TPU_FUSED`` is
     ``perchannel`` (read here, as the JAX package reads it). The kernels
     read the plain [C, L] +-1 chip table, so no packed table is built."""
-    check_supported(conf)
     make = (make_full_spec
             if os.environ.get("GNSS_SDR_TPU_FUSED", "blocked") == "perchannel"
             else make_blocked_spec)

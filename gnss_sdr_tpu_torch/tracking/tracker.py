@@ -25,7 +25,8 @@ whose comments describe that package's automatic choices; here
 ``pallas_correlator`` is not read (the eager engine always correlates
 through K3 or its plain version). FDMA plans (GLONASS) run in both
 engines, each channel's slot offset set by ``start_channel``'s
-``carrier_offset_hz``; the Kalman mode raises ``NotImplementedError``.
+``carrier_offset_hz``. The Kalman mode (``conf.kf``) runs on the eager
+engine only, so its every period is one K3 launch.
 
 The TPU package falls back from its fused kernel when window positions
 would pass 2^24 (float32 sample positions) or when channel positions
@@ -46,8 +47,9 @@ import torch
 from gnss_sdr_tpu_torch import resolve_device
 from gnss_sdr_tpu_torch.tracking.conf import DllPllConf
 from gnss_sdr_tpu_torch.tracking.dll_pll import (
+    KF_P0,
+    KF_PC0,
     TrackingState,
-    check_supported,
     init_state,
     track_block,
 )
@@ -188,7 +190,6 @@ class Tracker:
         per-PRN pilot secondary table [P, sec_len_pilot] and the shared
         data secondary [sec_len_data]. ``device`` holds the state and runs
         the engines; "cuda" raises without a card."""
-        check_supported(conf)
         self.device = resolve_device(device)
         self.conf = conf
         self.code_table = np.asarray(code_table, dtype=np.float32)
@@ -291,6 +292,9 @@ class Tracker:
         s.sec_active[ch] = False
         s.acc_data[ch] = 0.0
         s.acc_data_count[ch] = 0
+        s.kf_x[ch] = 0.0
+        s.kf_P[ch] = torch.from_numpy(KF_P0)
+        s.kf_pc[ch] = KF_PC0
 
     def stop_channel(self, ch: int) -> None:
         self.state.enabled[ch] = False

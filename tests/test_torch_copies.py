@@ -6,6 +6,7 @@ byte-equal to the originals. A change on either side shows up here."""
 
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -57,10 +58,12 @@ COPIES = [
     "pvt/coords.py",
     "pvt/ephemeris.py",
     "pvt/glonass.py",
+    "pvt/sbas_corr.py",
     "pvt/solver.py",
     "simulate/beidou.py",
     "simulate/constellation.py",
     "simulate/galileo.py",
+    "simulate/generator.py",
     "simulate/glonass.py",
     "simulate/multiband.py",
     "simulate/scenario.py",
@@ -74,6 +77,7 @@ COPIES = [
     "telemetry/inav.py",
     "telemetry/lnav.py",
     "telemetry/lnav_encode.py",
+    "telemetry/osnma.py",
     "telemetry/reed_solomon.py",
     "telemetry/sbas.py",
     "tracking/conf.py",
@@ -106,3 +110,83 @@ def test_data_file_is_byte_equal(rel):
     keeps its own copy of each file."""
     original = (ROOT / "gnss_sdr_tpu" / rel).read_bytes()
     assert (ROOT / "gnss_sdr_tpu_torch" / rel).read_bytes() == original
+
+
+def _sbas_case(pkg):
+    """tests/test_sbas_corr.py::test_sbas_aided_solve_removes_range_biases's
+    inputs and both solutions, through ``pkg``'s modules."""
+    import importlib
+
+    coords = importlib.import_module(f"{pkg}.pvt.coords")
+    sbas = importlib.import_module(f"{pkg}.pvt.sbas_corr")
+    solver = importlib.import_module(f"{pkg}.pvt.solver")
+    const = importlib.import_module(f"{pkg}.simulate.constellation")
+    tow = 7200.0 + 120.0
+    ephs = const.make_constellation(seed=3)
+    rx = coords.llh_to_ecef(np.deg2rad(41.275), np.deg2rad(1.9876), 80.0)
+    vis = const.visible_sats(ephs, rx, tow)[:7]
+    rng = np.random.default_rng(9)
+    biases = {prn: float(b) for prn, b in
+              zip(vis, rng.uniform(-8.0, 8.0, len(vis)))}
+    obs = []
+    for prn in vis:
+        t = const.truth_measurement(ephs[prn], rx, tow, rx_clock_bias_s=1e-4)
+        obs.append(solver.ObsEpoch(
+            prn=prn, pseudorange_m=t["pseudorange_m"] + biases[prn],
+            doppler_hz=t["doppler_hz"]))
+    sb = sbas.SbasCorrections()
+    sb.ingest(1, sbas.encode_mt1(sorted(vis)))
+    slots = {prn: i for i, prn in enumerate(sorted(vis))}
+    prc = [0.0] * 13
+    for prn in vis:
+        prc[slots[prn]] = -biases[prn]
+    sb.ingest(2, sbas.encode_mt2_5(prc))
+    kw = dict(apply_atmosphere=False, raim_threshold_m=0.0)
+    return (rx, solver.solve_pvt(obs, ephs, tow, **kw),
+            solver.solve_pvt(obs, ephs, tow, sbas=sb, **kw))
+
+
+def test_sbas_aided_solve_matches_jax():
+    """``solve_pvt(..., sbas=...)`` reaches the port's copy of
+    pvt/sbas_corr.py, and the corrected fix equals the JAX package's bit
+    for bit (the copy of tests/test_sbas_corr.py's case)."""
+    rx, plain_j, aided_j = _sbas_case("gnss_sdr_tpu")
+    _, plain_t, aided_t = _sbas_case("gnss_sdr_tpu_torch")
+    np.testing.assert_array_equal(aided_t.pos_ecef, aided_j.pos_ecef)
+    np.testing.assert_array_equal(plain_t.pos_ecef, plain_j.pos_ecef)
+    assert np.linalg.norm(aided_t.pos_ecef - rx) < 0.3
+
+
+def test_signed_galileo_pages_match_jax():
+    """A Galileo scenario with an OSNMA signer builds in the port (its
+    copy of telemetry/osnma.py signs the pages), and every satellite's
+    page symbols equal the JAX scenario's. The two signers share the JAX
+    signer's key and one DSM-KROOT signature: ECDSA draws a fresh nonce
+    per signature, the TESLA chain and the tags follow from the seed."""
+    from gnss_sdr_tpu.simulate.galileo import (
+        GalileoScenario as JScenario,
+        GalileoScenarioConfig as JConfig,
+    )
+    from gnss_sdr_tpu.telemetry.osnma import OsnmaSigner as JSigner
+    from gnss_sdr_tpu_torch.simulate.galileo import (
+        GalileoScenario,
+        GalileoScenarioConfig,
+    )
+    from gnss_sdr_tpu_torch.telemetry.osnma import OsnmaSigner
+
+    kw = dict(num_keys=48, seed=11, wn0=1250, tow0_hours=2)
+    js, ts = JSigner(**kw), OsnmaSigner(**kw)
+    sig = js._sign()
+    js._sign = ts._sign = lambda: sig
+    ts._private, ts.public_key = js._private, js.public_key
+    assert ts.keys == js.keys
+    scen = dict(fs=4.0e6, tow_start_s=7310.0, duration_s=4.0,
+                cn0_dbhz=48.0, max_sats=4, seed=3)
+    j = JScenario(JConfig(osnma_signer=js, **scen))
+    t = GalileoScenario(GalileoScenarioConfig(osnma_signer=ts, **scen))
+    assert t.prns == j.prns
+    for prn in j.prns:
+        np.testing.assert_array_equal(t._signs[prn], j._signs[prn])
+    # the signer's fields really are in the pages
+    unsigned = GalileoScenario(GalileoScenarioConfig(**scen))
+    assert any((unsigned._signs[p] != t._signs[p]).any() for p in t.prns)

@@ -54,12 +54,14 @@ from torch_cases import (
     d1_block,
     d1_inputs,
     d1_signal,
+    e1b_cboc_baseband,
     fdma_noise_inputs,
     fused_noise_case,
     glonass_block,
     glonass_signal,
     long_code_block,
     long_code_signal,
+    make_signal,
     pilot_inputs,
     pilot_signal,
     pilot_tables,
@@ -694,3 +696,220 @@ def test_last_plans_correlator_matches_plain_cuda(cuda, shape):
         scale = max(1.0, float(np.abs(got[:, 0, 2:4]).max()))
         np.testing.assert_allclose(got[:, 0, 6:8], got[:, 0, 2:4], rtol=0,
                                    atol=2e-3 * scale)
+
+
+# ---- the acquisition engines, the Kalman mode and the conditioner on the
+# card against the same calls on the CPU (none of them holds a hand
+# kernel but K3 under the Kalman mode; the others are torch.fft and
+# elementwise torch ops on the card)
+def _acq_case(engine, device):
+    """(engine, samples, rows) of tests/test_torch_acq_engines.py's cases,
+    the engine built on ``device``."""
+    from gnss_sdr_tpu_torch import acquisition as acq
+    from gnss_sdr_tpu_torch.codes.galileo_e1 import galileo_e1b_code
+    from gnss_sdr_tpu_torch.codes.galileo_e5a import (
+        galileo_e5ai_code,
+        galileo_e5aq_code,
+    )
+    from gnss_sdr_tpu_torch.codes.gps_l1_ca import gps_l1_ca_code_table
+    from gnss_sdr_tpu_torch.simulate import (
+        SatelliteSignalParams,
+        generate_baseband,
+    )
+
+    gps = dict(fs=2.046e6, code_length_chips=1023, code_rate_cps=1.023e6,
+               doppler_max_hz=5000.0, doppler_step_hz=250.0, pfa=1e-3)
+    prns = list(range(1, 33))
+    if engine == "fine_doppler":
+        conf = acq.AcqConfig(**dict(gps, doppler_step_hz=500.0,
+                                    coherent_integration_periods=4))
+        eng = acq.FineDopplerAcquisition(conf, gps_l1_ca_code_table(), prns,
+                                         device=device)
+        sat = SatelliteSignalParams(prn=9, cn0_dbhz=48.0, doppler_hz=1337.0,
+                                    delay_chips=222.5)
+        x = generate_baseband([sat], conf.fs, conf.input_samples, seed=11)
+        return eng, x[None], np.array([8])
+    if engine in ("tong", "quicksync"):
+        conf = acq.AcqConfig(**gps)
+        if engine == "tong":
+            eng = acq.TongAcquisition(conf, gps_l1_ca_code_table(), prns,
+                                      tong_max=3, max_attempts=10,
+                                      device=device)
+            n = eng.inner.conf.input_samples * 10
+        else:
+            eng = acq.QuickSyncAcquisition(conf, gps_l1_ca_code_table(),
+                                           prns, device=device)
+            n = eng.win
+        sat = SatelliteSignalParams(prn=17, cn0_dbhz=47.0, doppler_hz=-800.0,
+                                    delay_chips=700.0)
+        x = generate_baseband([sat], conf.fs, n, seed=12)
+        return eng, np.stack([x, x]), np.array([16, 3])
+    if engine == "cccwsr":
+        conf = acq.AcqConfig(fs=4.092e6, code_length_chips=4092,
+                             code_rate_cps=1.023e6, doppler_max_hz=4000.0,
+                             doppler_step_hz=125.0, pfa=1e-3)
+        chips = np.stack([galileo_e1b_code(p) for p in range(1, 11)])
+        eng = acq.CccwsrAcquisition(conf, chips, list(range(1, 11)),
+                                    device=device)
+        x = e1b_cboc_baseband(5, conf.fs, eng.win, 48.0, 750.0, 1000.25,
+                              seed=16)
+        return eng, np.stack([x, x]), np.array([4, 7])
+    conf = acq.AcqConfig(fs=12.0e6, code_length_chips=10230,
+                         code_rate_cps=10.23e6, doppler_max_hz=3000.0,
+                         doppler_step_hz=250.0, pfa=1e-3)
+    data = np.stack([galileo_e5ai_code(p) for p in range(1, 9)])
+    pilot = np.stack([galileo_e5aq_code(p) for p in range(1, 9)])
+    eng = acq.NoncoherentIQAcquisition(conf, data.astype(np.float32),
+                                       pilot.astype(np.float32),
+                                       list(range(1, 9)), device=device)
+    sat = SatelliteSignalParams(prn=4, system="E", signal="5X",
+                                cn0_dbhz=49.0, doppler_hz=-1200.0,
+                                delay_chips=4000.5)
+    x = generate_baseband([sat], conf.fs, eng.win, seed=21)
+    return eng, np.stack([x, x]), np.array([3, 6])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["fine_doppler", "tong", "quicksync",
+                                    "cccwsr", "noncoh_iq"])
+def test_acquisition_engine_cpu_vs_cuda(cuda, engine):
+    """Each engine variant on the card against itself on the CPU: equal
+    verdicts, Dopplers and delays, statistics within 1e-4 relative."""
+    res = {}
+    for dev in ("cpu", cuda):
+        eng, x, rows = _acq_case(engine, dev)
+        res[str(dev)] = eng.acquire(x, rows)
+    a, b = res["cpu"], res[str(cuda)]
+    np.testing.assert_array_equal(b.detected, a.detected)
+    np.testing.assert_array_equal(b.delay_samples, a.delay_samples)
+    np.testing.assert_array_equal(b.doppler_hz, a.doppler_hz)
+    np.testing.assert_allclose(b.test_statistic, a.test_statistic, rtol=1e-4)
+    assert a.detected[0]
+
+
+@pytest.mark.cuda
+def test_kf_eager_block_on_k3_matches_plain_cuda(cuda):
+    """The Kalman mode of the eager engine on the card (K3 once a period)
+    against the same engine on the CPU (K3's plain version), from one
+    started state with FLL pull-in, over two blocks: _assert_match's
+    tolerances on the outputs, kf_P and kf_pc within 1e-5 relative (they
+    follow the integration times alone), kf_x within 1e-3."""
+    from gnss_sdr_tpu_torch.codes.gps_l1_ca import gps_l1_ca_code_table
+    from gnss_sdr_tpu_torch.tracking import dll_pll as tdll
+    from gnss_sdr_tpu_torch.tracking.conf import DllPllConf
+    from gnss_sdr_tpu_torch.tracking.tracker import Tracker
+
+    tbl = gps_l1_ca_code_table()[:PILOT_C].astype(np.float32)
+    sig = make_signal(tbl, 200_000)
+    conf = DllPllConf(**dict(conf_kw(kf=True, enable_fll_pull_in=True),
+                             steps_per_block=20))
+    trk = Tracker(conf, tbl, device="cpu")
+    for ch in range(PILOT_C):
+        trk.start_channel(ch, prn=ch + 1, code_row=ch,
+                          acq_delay_samples=0.0,
+                          acq_doppler_hz=DOPS[ch] + 30.0,
+                          acq_samplestamp=0, current_abs_sample=0)
+    state = tdll.state_to_numpy(trk.state.replace(pos=torch.as_tensor(
+        trk.pos_abs.astype(np.int32))))
+    outs, ends = {}, {}
+    for dev in ("cpu", cuda):
+        st = tdll.state_from_numpy(state, dev)
+        w = torch.as_tensor(sig, device=dev)
+        codes = torch.as_tensor(trk.codes, device=dev)
+        before = k3.correlator.launches
+        outs[str(dev)] = []
+        for _ in range(2):
+            st, o = tdll.track_block(conf, st, w, codes)
+            outs[str(dev)].append({k: v.cpu().numpy() for k, v in o.items()})
+        ends[str(dev)] = tdll.state_to_numpy(st)
+        if dev != "cpu":
+            assert k3.correlator.launches == before + 2 * 20
+    for a, b in zip(outs["cpu"], outs[str(cuda)]):
+        for k in ("n_samples", "pos_end", "boundary"):
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        assert np.abs(a["carrier_doppler"] - b["carrier_doppler"]).max() < 0.1
+        pa, pb = a["prompt"], b["prompt"]
+        assert np.median(np.abs(pa - pb) / (np.abs(pa) + 1e-9)) < 5e-3
+        assert np.abs(a["carrier_phase"] - b["carrier_phase"]).max() < 1e-3
+        assert np.abs(a["rem_code_phase"] - b["rem_code_phase"]).max() < 1e-3
+    a, b = ends["cpu"], ends[str(cuda)]
+    for k, tol in (("kf_P", 1e-5), ("kf_pc", 1e-5), ("kf_x", 1e-3)):
+        np.testing.assert_allclose(b[k], a[k], rtol=tol, atol=0, err_msg=k)
+
+
+def _noise(rng, *shape):
+    return (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(
+        np.complex64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["fir_decim2", "freq_xlating", "notch",
+                                   "pulse_blanking", "direct", "polyphase",
+                                   "beamformer", "streaming"])
+def test_conditioner_stage_cpu_vs_cuda(cuda, stage):
+    """Each conditioner stage on the card against the same call on the CPU,
+    on noise with a CW tone and pulses: within 1e-5 of the CPU output's
+    largest sample (the direct resampler and pulse blanking: equal)."""
+    from gnss_sdr_tpu_torch import conditioner as tc
+
+    rng = np.random.default_rng(5)
+    x = _noise(rng, 65536)
+    x += 3.0 * np.exp(2j * np.pi * 0.11 * np.arange(x.size)).astype(
+        np.complex64)
+    x[::997] *= 40.0
+    taps = tc.design_fir(65, 4e6, (0.0, 1.6e6)).astype(np.float32)
+
+    def run(dev):
+        xt = torch.as_tensor(x, device=dev)
+        tt = torch.as_tensor(taps, device=dev)
+        if stage == "fir_decim2":
+            return tc.fir_apply(xt, tt, 2)
+        if stage == "freq_xlating":
+            return tc.freq_xlating_fir_apply(xt, tt, 0.3, 4e6, 2.5e5, 2)[0]
+        if stage == "notch":
+            return tc.notch_filter_block(xt)
+        if stage == "pulse_blanking":
+            return tc.pulse_blanking_block(xt)
+        if stage == "direct":
+            return tc.direct_resample(xt, 4e6 / 2.6e6, 40000, 0.7)
+        if stage == "polyphase":
+            return tc.polyphase_resample(xt, 4e6 / 2.6e6, 40000, 4.3)
+        if stage == "beamformer":
+            w = tc.steering_weights(4, 0.5, 20.0)
+            xs = np.stack([x, np.roll(x, 1), np.roll(x, 2), np.roll(x, 3)])
+            return tc.Beamformer(w, device=dev).process(xs)
+        cond = tc.SignalConditioner(tc.ConditionerConfig(
+            fs_in=4e6, if_freq_hz=2.5e5, fir_taps=65, decimation=2,
+            enable_notch=True, enable_pulse_blanking=True, fs_out=1.6e6),
+            device=dev)
+        return np.concatenate([cond.process(x[i:i + n]) for i, n in (
+            (0, 30001), (30001, 17), (30018, 35518))])
+
+    a, b = (np.asarray(torch.as_tensor(run(d)).cpu()) for d in ("cpu", cuda))
+    assert a.shape == b.shape
+    if stage in ("direct", "pulse_blanking"):
+        np.testing.assert_array_equal(b, a)
+    else:
+        assert np.abs(a - b).max() <= 1e-5 * np.abs(a).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["cubature", "unscented"])
+def test_gaussian_run_carry_cpu_vs_cuda(cuda, kind):
+    """The CKF/UKF over 40 periods of prompts on the card (float64)
+    against the CPU, each output within 1e-9 of its largest element (the
+    unscented weights at alpha = 1e-2 are about +-1e4 and cancel, so an
+    element near zero carries the rounding of the large ones, summed in
+    another order on the card)."""
+    from gnss_sdr_tpu_torch.tracking.gaussian import GaussianCarrierTracker
+
+    rng = np.random.default_rng(5)
+    t = np.arange(40)[:, None]
+    p = 20.0 * np.exp(1j * (0.3 + 0.044 * t + np.array([0.0, 1.0]))) + (
+        rng.normal(size=(40, 2)) + 1j * rng.normal(size=(40, 2)))
+    x0 = np.array([[0.3, 0.04, 0.0], [1.3, 0.05, 0.0]])
+    P0 = np.tile(np.diag([1.0, 1e-3, 1e-6]), (2, 1, 1))
+    a, b = (GaussianCarrierTracker(2, kind=kind, device=d).run_carry(
+        p, x0, P0) for d in ("cpu", cuda))
+    for u, v in zip(a, b):
+        assert np.abs(v - u).max() <= 1e-9 * np.abs(u).max()

@@ -186,22 +186,28 @@ def run_fdma(pilot):
     return outs, sj, st
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"track_pilot": True, "fdma": True}, None), ({"fdma": True}, None),
-    ({"kf": True}, 12)], ids=["pilot", "fdma", "kf"])
-def test_unsupported_modes_raise(kw, item):
-    """The Kalman mode raises, naming the ROADMAP queue item that ports it.
-    FDMA, with or without the pilot mode, runs: the port's eager engine
-    (the samples wiped off in float64, K3's plain version at a zero phase)
+@pytest.mark.parametrize("kw", [
+    {"track_pilot": True, "fdma": True}, {"fdma": True}, {"kf": True}],
+    ids=["pilot", "fdma", "kf"])
+def test_unsupported_modes_raise(kw):
+    """The modes that once raised here run (the name is from then).
+    FDMA, with or without the pilot mode: the port's eager engine (the
+    samples wiped off in float64, K3's plain version at a zero phase)
     against JAX's XLA path over two blocks with this file's tolerances,
-    the slot offset in the accumulated carrier phase of both."""
-    conf = TConf(**conf_kw(**kw))
-    st = tdll.init_state(conf, "cpu")
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=f"queue item {item}"):
-            tdll.track_block(conf, st,
-                             torch.zeros(100_000, dtype=torch.complex64),
-                             torch.ones(C, 1023))
+    the slot offset in the accumulated carrier phase of both. The Kalman
+    mode, from FLL pull-in: two blocks against JAX's XLA path with this
+    file's tolerances, and the Kalman states kf_x, kf_P and kf_pc within
+    1e-5 relative."""
+    if kw.get("kf"):
+        oj, ot, sj, st = run_both({"kf": True, "enable_fll_pull_in": True},
+                                  blocks=2)
+        for a, b in zip(oj, ot):
+            assert_match(a, b)
+        end_j, end_t = to_numpy(sj), tdll.state_to_numpy(st)
+        for k in ("kf_x", "kf_P", "kf_pc"):
+            np.testing.assert_allclose(end_t[k], end_j[k], rtol=1e-5,
+                                       atol=0, err_msg=k)
+        assert (end_t["kf_pc"] < 0.25).all()      # the filter updated
         return
     outs, sj, st = run_fdma(kw.get("track_pilot", False))
     for a, b in outs:

@@ -5,8 +5,8 @@ against the JAX package's.
   ``galileo_e1bc_plan`` (E1-B+C with the pilot) are equal field by field,
   their tables bit for bit.
 - Both factories build equal plans from ``conf/galileo_e1_file.conf``;
-  with the Tong, QuickSync or CCCWSR acquisition the port's Receiver
-  raises, naming the ROADMAP queue item that ports them.
+  with the Tong, QuickSync or CCCWSR acquisition both Receivers build the
+  same engine, and the two agree on a noise window.
 - PCPS on the 8184-unit sinBOC table, with the E1 plans' double-length
   FFT (``bit_transition_flag``) and the pilot plan's two-step Doppler
   zoom: the JAX engine's verdicts, Doppler bins, delays within one sample
@@ -106,19 +106,40 @@ def test_factory_plans_match_jax_on_galileo_conf():
     assert tp[0].acq_conf.bit_transition_flag
 
 
-def test_other_acquisition_engines_raise():
+@pytest.mark.parametrize("impl", [
+    "Galileo_E1_PCPS_Tong_Ambiguous_Acquisition",
+    "Galileo_E1_PCPS_QuickSync_Ambiguous_Acquisition",
+    "Galileo_E1_PCPS_CCCWSR_Ambiguous_Acquisition"])
+def test_other_acquisition_engines_match_jax(impl):
     """The E1 group builds with the Tong, QuickSync and CCCWSR
-    implementations the JAX factory accepts; the port's Receiver carries
-    PCPS only and names the ROADMAP queue item of the others."""
-    for impl in ("Galileo_E1_PCPS_Tong_Ambiguous_Acquisition",
-                 "Galileo_E1_PCPS_QuickSync_Ambiguous_Acquisition",
-                 "Galileo_E1_PCPS_CCCWSR_Ambiguous_Acquisition"):
-        cfg = FileConfiguration(ROOT / "conf" / "galileo_e1_file.conf")
+    implementations the JAX factory accepts; both Receivers build the same
+    engine from it, and the two engines give equal verdicts, Dopplers and
+    delays, and statistics within 1e-4, on one noise window (PRNs 1-2)."""
+    def plan(pkg_cfg, plans_fn):
+        cfg = pkg_cfg(ROOT / "conf" / "galileo_e1_file.conf")
         cfg.set_property("Acquisition_1B.implementation", impl)
-        (plan,) = get_signal_plans(cfg, 4e6)
-        assert plan.acq_engine != "pcps", impl
-        with pytest.raises(NotImplementedError, match="queue item 11"):
-            Receiver(ReceiverConfig(fs=4e6, device="cpu"), plans=[plan])
+        (p,) = plans_fn(cfg, 4e6)
+        p.search_prns = [1, 2]
+        return p
+
+    tp, jp = plan(FileConfiguration, get_signal_plans), plan(
+        JFileConfiguration, j_plans)
+    assert tp.acq_engine == jp.acq_engine != "pcps"
+    ja = JReceiver(JConfig(fs=4e6), plans=[jp]).groups[0].acq
+    ta = Receiver(ReceiverConfig(fs=4e6, device="cpu"),
+                  plans=[tp]).groups[0].acq
+    assert type(ta).__name__ == type(ja).__name__
+    n = getattr(ta, "win", None) or ta.conf.input_samples
+    rng = np.random.default_rng(7)
+    x = (rng.normal(size=(2, n)) + 1j * rng.normal(size=(2, n))).astype(
+        np.complex64)
+    rows = np.array([tp.prn_row(1), tp.prn_row(2)])
+    rj, rt = ja.acquire(x, rows), ta.acquire(x, rows)
+    np.testing.assert_array_equal(rt.detected, rj.detected)
+    np.testing.assert_array_equal(rt.delay_samples, rj.delay_samples)
+    np.testing.assert_array_equal(rt.doppler_hz, rj.doppler_hz)
+    np.testing.assert_allclose(rt.test_statistic, rj.test_statistic,
+                               rtol=1e-4)
 
 
 def scenario():

@@ -3,6 +3,7 @@ imports JAX or the JAX package, importing the receiver loads no JAX, and
 the entry points refuse to run without CUDA unless asked for the CPU."""
 
 import ast
+import importlib
 import subprocess
 import sys
 from pathlib import Path
@@ -37,6 +38,44 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
+def _port_imports(path: Path) -> list[tuple[str, str | None, int]]:
+    """(module, imported name or None, line) for every ``import
+    gnss_sdr_tpu_torch.X`` and ``from gnss_sdr_tpu_torch.X import n`` in
+    the file, function bodies included."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            found += [(a.name, None, node.lineno) for a in node.names
+                      if a.name.split(".")[0] == "gnss_sdr_tpu_torch"]
+        elif (isinstance(node, ast.ImportFrom) and node.level == 0
+              and node.module.split(".")[0] == "gnss_sdr_tpu_torch"):
+            found += [(node.module, a.name, node.lineno) for a in node.names]
+    return found
+
+
+def test_port_imports_resolve():
+    """Every port module named in the port's source (and chip_smoke.py)
+    imports, and every name taken from one is an attribute or a submodule
+    of it: a module copied without the modules it imports lazily fails
+    here, not in a user's run."""
+    bad = []
+    for path in _port_files():
+        for mod, name, line in _port_imports(path):
+            where = f"{path.relative_to(ROOT)}:{line}"
+            try:
+                m = importlib.import_module(mod)
+            except ImportError as e:
+                bad.append(f"{where}: import {mod}: {e}")
+                continue
+            if name is None or name == "*" or hasattr(m, name):
+                continue
+            try:
+                importlib.import_module(f"{mod}.{name}")
+            except ImportError:
+                bad.append(f"{where}: {mod} has no {name}")
+    assert not bad, "\n".join(bad)
+
+
 def test_receiver_import_loads_no_jax():
     code = ("import sys, gnss_sdr_tpu_torch.receiver.receiver; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -50,17 +89,42 @@ def test_receiver_import_loads_no_jax():
 def test_entry_points_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    import numpy as np
+
+    from gnss_sdr_tpu_torch import acquisition as acq
     from gnss_sdr_tpu_torch import resolve_device
+    from gnss_sdr_tpu_torch.acquisition.roc import measure_roc
+    from gnss_sdr_tpu_torch.conditioner import (
+        Beamformer,
+        ConditionerConfig,
+        SignalConditioner,
+    )
     from gnss_sdr_tpu_torch.io.device_stream import DeviceStream
     from gnss_sdr_tpu_torch.receiver.plans import gps_l1ca_plan
     from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
     from gnss_sdr_tpu_torch.tracking import Tracker
+    from gnss_sdr_tpu_torch.tracking.gaussian import (
+        GaussianCarrierTracker,
+        GaussianLoopCloser,
+    )
 
     plan = gps_l1ca_plan(2.6e6)
+    conf, table, prns = plan.acq_conf, plan.code_table, [1, 2]
     for make in (lambda: Receiver(ReceiverConfig()),
                  lambda: Tracker(plan.trk_conf, plan.code_table),
                  lambda: DeviceStream(1024),
-                 lambda: resolve_device("cuda")):
+                 lambda: resolve_device("cuda"),
+                 lambda: acq.FineDopplerAcquisition(conf, table, prns),
+                 lambda: acq.TongAcquisition(conf, table, prns),
+                 lambda: acq.QuickSyncAcquisition(conf, table, prns),
+                 lambda: acq.CccwsrAcquisition(conf, table, prns),
+                 lambda: acq.NoncoherentIQAcquisition(conf, table, table,
+                                                      prns),
+                 lambda: measure_roc(conf, table),
+                 lambda: GaussianCarrierTracker(2),
+                 lambda: GaussianLoopCloser(2, 1e-3),
+                 lambda: SignalConditioner(ConditionerConfig()),
+                 lambda: Beamformer(np.ones(4, np.complex64))):
         with pytest.raises(RuntimeError):
             make()
     assert resolve_device("cpu").type == "cpu"

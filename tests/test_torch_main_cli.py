@@ -6,9 +6,12 @@ the port's ``run_from_config(..., device="cpu")`` from the same .conf
 file. Both must acquire the same satellites with equal Doppler, delays
 within one sample, and leave every satellite's channel in the same
 tracking phase. The file also holds the port's CLI flag overrides, its
-conditioner adapters (bit for bit against the JAX adapters), the plans its
-factory builds from conf/gps_l1_file.conf and conf/dual_band_gps_gal.conf
-(field by field against the JAX factory's) and the parts that raise
+conditioner adapters (bit for bit against the JAX adapters), every input
+filter and resampler and the SignalGenerator source (against the JAX
+factory's), 0.4 s through both CLIs with conf/gps_l1_gaussian.conf's keys,
+the KF tracking and a Freq_Xlating_Fir_Filter, the plans its factory
+builds from conf/gps_l1_file.conf and conf/dual_band_gps_gal.conf (field
+by field against the JAX factory's) and the parts that raise
 ``NotImplementedError``.
 """
 
@@ -30,7 +33,11 @@ from gnss_sdr_tpu.config.configuration import (
     InMemoryConfiguration as JInMemoryConfiguration,
 )
 from gnss_sdr_tpu.io import encode_samples
-from gnss_sdr_tpu.receiver.factory import get_signal_plans as j_plans
+from gnss_sdr_tpu.receiver.factory import (
+    get_signal_conditioner as j_conditioner,
+    get_signal_plans as j_plans,
+    get_signal_source as j_source,
+)
 from gnss_sdr_tpu.simulate.scenario import GpsScenario, ScenarioConfig
 from gnss_sdr_tpu_torch import main as tmain
 from gnss_sdr_tpu_torch.conditioner import (
@@ -136,6 +143,59 @@ def test_run_from_config_matches_jax(conf_file, monkeypatch, capsys):
     assert "channel status" in capsys.readouterr().out
 
 
+_ALT_KEYS = {
+    # conf/gps_l1_gaussian.conf's keys (below) on the capture
+    "gaussian": {},
+    "kf": {"Tracking_1C.implementation": "GPS_L1_CA_KF_Tracking"},
+    # the capture moved to an IF of +250 kHz, brought back by the filter
+    "freq_xlating": {"InputFilter.implementation": "Freq_Xlating_Fir_Filter",
+                     "InputFilter.IF": "250000"},
+}
+
+
+@pytest.mark.parametrize("case", list(_ALT_KEYS))
+def test_alternate_confs_match_jax(case, tmp_path, monkeypatch):
+    """The slice as a whole: 0.4 s of this file's capture through both
+    packages' run_from_config with conf/gps_l1_gaussian.conf's keys (the
+    CKF loop closer), with GPS_L1_CA_KF_Tracking instead, and with a
+    Freq_Xlating_Fir_Filter on a copy moved to +250 kHz. The first
+    acquisitions are equal (Doppler, delays within one sample), and each
+    channel ends in the same phase with its Doppler within 0.1 Hz."""
+    fs = int(FS)
+    x = cached_capture("torch_main_cli_gps5_3s", _capture)[:int(0.4 * FS)]
+    if case == "freq_xlating":
+        x = x * np.exp(2j * np.pi * 250e3 / FS * np.arange(x.size))
+    cap = tmp_path / "capture_l1.dat"
+    cap.write_bytes(encode_samples(np.round(x * 16), "ibyte"))
+    keys = {"SignalSource.filename": str(cap),
+            "SignalSource.sampling_frequency": str(fs),
+            "PVT.display_rate_ms": "1000", **_ALT_KEYS[case]}
+    j_made = _capturing(monkeypatch, jmain)
+    t_made = _capturing(monkeypatch, tmain)
+    cfgs = []
+    for make in (JFileConfiguration, FileConfiguration):
+        cfg = make(ROOT / "conf" / "gps_l1_gaussian.conf")
+        for k, v in keys.items():
+            cfg.set_property(k, v)
+        cfgs.append(cfg)
+    js = jmain.run_from_config(cfgs[0])
+    ts = tmain.run_from_config(cfgs[1], device="cpu")
+    assert len(js.acquired) >= 4
+    assert ts.acquired.keys() == js.acquired.keys()
+    for key, (dop, delay) in js.acquired.items():
+        assert ts.acquired[key][0] == pytest.approx(dop, abs=1e-6), key
+        assert abs(ts.acquired[key][1] - delay) <= 1.0, key
+    (jg,), (tg,) = j_made[0].groups, t_made[0].groups
+    assert tg.plan.trk_engine == jg.plan.trk_engine
+    assert tg.plan.trk_conf.kf == (case == "kf")
+    assert _phases(t_made[0]) == _phases(j_made[0])
+    act = jg.tracker.active_channels()
+    assert act == tg.tracker.active_channels() and act
+    dj = np.asarray(jg.tracker.state.carrier_doppler)[act]
+    dt = tg.tracker.state.carrier_doppler.numpy()[act]
+    assert np.abs(dt - dj).max() < 0.1
+
+
 def test_idle_channel():
     rx = Receiver(ReceiverConfig(fs=FS, num_channels=3, device="cpu"))
     assert rx._idle_channel() == 0
@@ -219,16 +279,50 @@ def _cfg(make=InMemoryConfiguration, **props):
     return cfg
 
 
-def test_fir_filter_raises():
-    for impl in ("Fir_Filter", "Freq_Xlating_Fir_Filter", "Notch_Filter",
-                 "Pulse_Blanking_Filter", "Beamformer_Filter"):
-        cfg = _cfg(InputFilter__implementation=impl)
-        with pytest.raises(NotImplementedError):
-            get_signal_conditioner(cfg, device="cpu")
-    cfg = _cfg(Resampler__implementation="Direct_Resampler",
-               Resampler__sample_freq_out=2e6)
-    with pytest.raises(NotImplementedError):
-        get_signal_conditioner(cfg, device="cpu")
+_FILTER_CASES = {
+    "fir": dict(InputFilter__implementation="Fir_Filter"),
+    "freq_xlating": dict(InputFilter__implementation="Freq_Xlating_Fir_Filter",
+                         InputFilter__IF=250000,
+                         InputFilter__decimation_factor=2),
+    "notch": dict(InputFilter__implementation="Notch_Filter"),
+    "notch_lite": dict(InputFilter__implementation="Notch_Filter_Lite"),
+    "pulse_blanking": dict(InputFilter__implementation="Pulse_Blanking_Filter"),
+    "beamformer": dict(InputFilter__implementation="Beamformer_Filter",
+                       InputFilter__number_of_channels=4,
+                       InputFilter__steer_deg=20.0),
+    "direct": dict(Resampler__implementation="Direct_Resampler",
+                   Resampler__sample_freq_out=2.6e6),
+    "mmse": dict(Resampler__implementation="Mmse_Resampler",
+                 Resampler__sample_freq_out=2.6e6),
+}
+
+
+@pytest.mark.parametrize("case", list(_FILTER_CASES))
+def test_filters_match_jax(case):
+    """Every InputFilter and Resampler implementation of the JAX factory
+    builds in the port's: the same conditioner configuration (the
+    beamformer: the same weights), and on two 9001-sample blocks of noise
+    with a CW tone and pulses (4 elements for the beamformer) outputs of
+    the same length within 1e-5 of the JAX output's largest sample. (These
+    raised before the conditioner was ported.)"""
+    props = dict(SignalSource__sampling_frequency=4e6, **_FILTER_CASES[case])
+    jc = j_conditioner(_cfg(JInMemoryConfiguration, **props))
+    tc = get_signal_conditioner(_cfg(**props), device="cpu")
+    assert type(tc).__name__ == type(jc).__name__
+    if case == "beamformer":
+        np.testing.assert_array_equal(tc.beamformer.weights,
+                                      jc.beamformer.weights)
+    assert dataclasses.asdict(tc.cfg) == dataclasses.asdict(jc.cfg)
+    rng = np.random.default_rng(4)
+    shape = (4, 9001) if case == "beamformer" else (9001,)
+    for _ in range(2):
+        x = (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(
+            np.complex64)
+        x += 3.0 * np.exp(2j * np.pi * 0.11 * np.arange(shape[-1]))
+        x[..., ::997] *= 40.0
+        a, b = tc.process(x), jc.process(x)
+        assert a.shape == b.shape and a.dtype == np.complex64
+        assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
 
 
 def test_galileo_group_raises():
@@ -325,9 +419,21 @@ PVT.display_rate_ms=1000
     assert status.acquired == ref
 
 
-def test_signal_generator_raises():
-    with pytest.raises(NotImplementedError):
-        get_signal_source(_cfg(SignalSource__implementation="SignalGenerator"))
+def test_signal_generator_matches_jax():
+    """SignalSource.implementation=SignalGenerator builds in both
+    factories, and the two sources stream the same samples bit for bit
+    (the port's copy of simulate/generator.py)."""
+    props = dict(SignalSource__implementation="SignalGenerator",
+                 SignalSource__sampling_frequency=2.6e6,
+                 SignalSource__num_satellites=2, SignalSource__PRN_0=3,
+                 SignalSource__PRN_1=17, SignalSource__doppler_Hz_1=-1500.0,
+                 SignalSource__delay_chips_1=300.5,
+                 SignalSource__duration_s=0.01, SignalSource__seed=5)
+    js = j_source(_cfg(JInMemoryConfiguration, **props))
+    ts = get_signal_source(_cfg(**props))
+    for n in (10000, 20000):
+        np.testing.assert_array_equal(ts.read(n), js.read(n))
+    assert ts.exhausted() and js.exhausted()
 
 
 @pytest.mark.parametrize("key,value", [

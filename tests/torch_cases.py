@@ -618,3 +618,23 @@ def d1_block(plan, K, dops, delays, sec0, window, device):
              torch.as_tensor(trk.codes, device=device),
              _pack_scalars(conf, st), st.pos, build_fused_engine(conf)),
             tabs)
+
+
+def e1b_cboc_baseband(prn, fs, n, cn0_dbhz, doppler_hz, delay_chips, seed):
+    """tests/test_acq_engines.py's Galileo E1-B CBOC(6,1,1/11) baseband:
+    subchips at 12x the code rate, unit-power complex noise."""
+    from gnss_sdr_tpu_torch.codes.galileo_e1 import (
+        cboc_expand,
+        galileo_e1b_code,
+    )
+
+    sub = cboc_expand(galileo_e1b_code(prn)).astype(np.float64)
+    t = np.arange(n, dtype=np.float64) / fs
+    ph = (t * 1.023e6 - delay_chips) * 12.0
+    s = sub[np.floor(ph).astype(np.int64) % len(sub)]
+    amp = np.sqrt(10.0 ** (cn0_dbhz / 10.0) / fs)
+    rng = np.random.default_rng(seed)
+    x = amp * s * np.exp(2j * np.pi * doppler_hz * t)
+    x += rng.normal(scale=np.sqrt(0.5), size=n) + 1j * rng.normal(
+        scale=np.sqrt(0.5), size=n)
+    return x.astype(np.complex64)
