@@ -48,7 +48,17 @@ plain version on a period of the run); ``conf/gps_l1_gaussian.conf``'s
 CKF loop closer through the CLI (K1); ``tests/test_tcp_connector.py``'s
 external loop over a localhost socket; the gps8 capture moved to a
 250 kHz IF through the CLI with a Freq_Xlating_Fir_Filter; and each
-conditioner stage on the card against the CPU. Each
+conditioner stage on the card against the CPU. Then the receiver's host
+options and the CLI's control plane (phases 38-42): the moving receiver
+of ``tests/test_dynamic.py`` with the PVT Kalman filter and the tracking
+and acquisition dumps (gps8-dyn-pvtkf); phase 17's L1 + L5 run in
+PPP_Static with the solid, pole and ocean tides (l1l5-ppp); phase 12's
+E1-B run with OSNMA in strict mode (e1b-osnma); conf/gps_l1_file.conf
+through the CLI cold, with the assistance XML, the telecommand server
+queried by a client thread, SUPL against a closed port and the dumps,
+then warm from that XML with a ``reset`` through the command FIFO
+(gps8-ctl); and the port's front_end_cal, ttff and bench_micro tools.
+Each
 run is held to its test's gates, and each kernel it ran to its plain
 version on a block of the run's own inputs. The Galileo, dual-band,
 GLONASS, BeiDou and mc64 captures are made in 1 s chunks by worker
@@ -258,9 +268,10 @@ def rows_rel_err(name: str, ref: np.ndarray, got: np.ndarray, K: int,
     return rels
 
 
-def position_gates(status, scen) -> dict:
+def position_gates(status, scen, ttff=(10.0, 32.0)) -> dict:
     """The receiver's fixes against tests/test_position.py's gates; raises
-    if one fails."""
+    if one fails. ``ttff`` is the window of the first fix, in signal s (a
+    cold start's by default)."""
     from gnss_sdr_tpu_torch.pvt.coords import ecef_to_enu
 
     fixes = status.fixes
@@ -283,7 +294,7 @@ def position_gates(status, scen) -> dict:
              and e["fixes"] >= 10 and e["mean_2d_m"] < 2.0
              and e["mean_3d_m"] < 5.0 and e["rms_2d_m"] < 3.0
              and e["mean_speed_mps"] < 0.5 and e["ttff_s"] is not None
-             and 10.0 < e["ttff_s"] < 32.0)
+             and ttff[0] < e["ttff_s"] < ttff[1])
     if not gates:
         raise AssertionError(f"position gates failed: {e}")
     return e
@@ -901,6 +912,17 @@ MC64_GPS = dict(fs=4.0e6, tow_start_s=7314.0, duration_s=6.0, cn0_dbhz=46.0,
 MC64_GLO = dict(fs=3.6e6, tow_start_s=7335.0, duration_s=6.0, cn0_dbhz=46.0,
                 max_sats=16, seed=5)
 MC64_BDS = dict(fs=2.6e6, duration_s=6.0, cn0_dbhz=46.0, max_sats=16, seed=5)
+# gps8: tests/test_position.py's scenario with bench.py's 8 satellites
+# asked (phases 6, 7, 32, 34, 35, 37, 41), made in 1 s chunks as the test
+# feeds it
+GPS8 = dict(fs=FS, tow_start_s=7314.0, duration_s=32.0, cn0_dbhz=46.0,
+            rx_clock_bias_s=2.1e-4, max_sats=8, min_elevation_deg=15.0,
+            seed=1)
+# tests/test_dynamic.py's moving receiver: GPS L1 C/A at 2.6 Msps, 32 s,
+# 12 m/s east and -8 m/s north, 6 satellites, seed 1
+DYN = dict(fs=FS, tow_start_s=7314.0, duration_s=32.0, cn0_dbhz=46.0,
+           rx_clock_bias_s=1.5e-4, rx_vel_enu_mps=(12.0, -8.0, 0.0),
+           max_sats=6, min_elevation_deg=15.0, seed=1)
 # capture -> (primary scenario's kind, second band, a second scenario on
 # the primary's band, or None)
 CAPTURES = {
@@ -911,6 +933,7 @@ CAPTURES = {
     "bds_l1": ("bds_l1", None), "bds_b1": ("bds_b1", None),
     "geo": ("geo", None), "mc64_l1": ("mc64_gps", "mc64_gal"),
     "mc64_g1": ("mc64_glo", None), "mc64_b1": ("mc64_bds", None),
+    "dyn": ("dyn", None), "gps8": ("gps8", None),
 }
 _SCEN_CACHE: dict = {}
 
@@ -919,8 +942,9 @@ def gal_scenario(kind: str):
     """The primary scenario ``kind`` (one per process): a Galileo
     scenario of GAL_SCENARIOS, a GPS or Galileo scenario of the dual-band
     runs, the GLONASS scenario ("glo"), the GPS and BeiDou scenarios of
-    gps_bds ("bds_l1", "bds_b1"), the B1I GEO signal ("geo") or a scenario
-    of mc64 ("mc64_gps", "mc64_gal", "mc64_glo", "mc64_bds")."""
+    gps_bds ("bds_l1", "bds_b1"), the B1I GEO signal ("geo"), a scenario
+    of mc64 ("mc64_gps", "mc64_gal", "mc64_glo", "mc64_bds") or the moving
+    receiver of tests/test_dynamic.py ("dyn") or gps8's ("gps8")."""
     from gnss_sdr_tpu_torch.simulate.beidou import (
         BeidouScenario,
         BeidouScenarioConfig,
@@ -937,7 +961,7 @@ def gal_scenario(kind: str):
 
     if kind not in _SCEN_CACHE:
         gps = {"dual_l1": DUAL_L1, "dual16_l1": DUAL16_L1, "bds_l1": GPS_BDS,
-               "mc64_gps": MC64_GPS}
+               "mc64_gps": MC64_GPS, "dyn": DYN, "gps8": GPS8}
         gal = dict(GAL_SCENARIOS, e5a_gal=E5A_GAL, dual16_gal=DUAL16_GAL,
                    mc64_gal=MC64_GPS)
         glo = {"glo": GLO_SCEN, "mc64_glo": MC64_GLO}
@@ -1437,8 +1461,8 @@ def galileo_python_phase(capture, scen, kernels) -> dict:
         raise AssertionError(f"E1-B: {n1} K1 and {n3} K3 launches for "
                              f"{blocks} blocks")
     e = dict(galileo_gates(rx.status, rx, scen), blocks=blocks,
-             k1_launches=n1, wall_s=wall,
-             realtime_factor=scen.cfg.duration_s / wall)
+             k1_launches=n1, ephemeris_keys=sorted(rx.ephemerides),
+             wall_s=wall, realtime_factor=scen.cfg.duration_s / wall)
     emit("e2e_galileo_e1b_20s", **e)
     hold_fused_block("e2e_galileo_e1b_20s", "track_blocked",
                      rec["track_blocked"], kernels, "track_blocked_e1b")
@@ -1898,6 +1922,30 @@ def dual_band_phase(caps, kernels) -> dict:
     L5 searched around each L1 Doppler by the assisted engine; held to the
     test's gates. Then K1 against its plain version on an L5 block of the
     run (``track_blocked_l5``)."""
+    scen = gal_scenario("dual_l1")
+    rx, nb, n1, wall, rec = dual_band_run(caps)
+    e = dict(dual_band_gates(rx, scen), blocks_l1=nb[0], blocks_l5=nb[1],
+             k1_launches=n1,
+             l5_assisted=rx.groups[1].assisted_acq is not None,
+             wall_s=wall, realtime_factor=scen.cfg.duration_s / wall)
+    emit("e2e_dual_band_l1_l5_32s", **e)
+    hold_fused_block("e2e_dual_band_l1_l5_32s", "track_blocked",
+                     rec[("track_blocked", L5_LEN)], kernels,
+                     "track_blocked_l5")
+    kernels["track_blocked_l5"]["launches"] = nb[1]
+    return e
+
+
+def dual_band_run(caps, reacquire: bool = False, on_receiver=None,
+                  **cfg_kw):
+    """tests/test_dual_band.py's L1 + L5 receiver (ReceiverConfig options
+    ``cfg_kw`` added) on the dual_l1/dual_l5 captures, 1 s feeds of each
+    band, through K1 with the kernels' inputs recorded; returns (rx,
+    blocks per group, K1 launches, wall s, recorded blocks). The test
+    stops acquiring once 4 L1 and 3 L5 channels track; ``reacquire``
+    goes on acquiring after each feed while an L5 channel is idle, as
+    the CLI re-acquires idle channels; ``on_receiver(rx)`` is called on
+    the Receiver before the run."""
     from gnss_sdr_tpu_torch.ops import correlator as k3
     from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
     from gnss_sdr_tpu_torch.receiver.plans import gps_l1ca_plan, gps_l5_plan
@@ -1905,9 +1953,11 @@ def dual_band_phase(caps, kernels) -> dict:
 
     scen = gal_scenario("dual_l1")
     prns = tuple(scen.prns)
-    rx = Receiver(ReceiverConfig(fs=FS, num_channels=5), plans=[
+    rx = Receiver(ReceiverConfig(fs=FS, num_channels=5, **cfg_kw), plans=[
         gps_l1ca_plan(fs=FS, num_channels=5, search_prns=prns),
         gps_l5_plan(fs=L5_FS, num_channels=4, search_prns=prns[:4])])
+    if on_receiver is not None:
+        on_receiver(rx)
     blocks = count_blocks(rx)
     x1, x5 = caps["dual_l1"], caps["dual_l5"]
     c1, c5 = int(FS), int(L5_FS)
@@ -1925,6 +1975,11 @@ def dual_band_phase(caps, kernels) -> dict:
                 acquired = (
                     len([k for k in rx.status.acquired if k[0] == "G"]) >= 4
                     and len(rx.groups[1].active_channels()) >= 3)
+            elif reacquire and rx.groups[1].idle_channel() is not None:
+                try:
+                    rx.acquire()
+                except ValueError:
+                    pass        # not enough samples buffered yet
             rx.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
@@ -1933,16 +1988,7 @@ def dual_band_phase(caps, kernels) -> dict:
     if not (nb[1] > 0 and n1 == sum(nb) and n3 == 0):
         raise AssertionError(f"L1 + L5: {n1} K1 and {n3} K3 launches for "
                              f"{nb} blocks")
-    e = dict(dual_band_gates(rx, scen), blocks_l1=nb[0], blocks_l5=nb[1],
-             k1_launches=n1,
-             l5_assisted=rx.groups[1].assisted_acq is not None,
-             wall_s=wall, realtime_factor=scen.cfg.duration_s / wall)
-    emit("e2e_dual_band_l1_l5_32s", **e)
-    hold_fused_block("e2e_dual_band_l1_l5_32s", "track_blocked",
-                     rec[("track_blocked", L5_LEN)], kernels,
-                     "track_blocked_l5")
-    kernels["track_blocked_l5"]["launches"] = nb[1]
-    return e
+    return rx, nb, n1, wall, rec
 
 
 def e5a_gates(rx, gal) -> dict:
@@ -3618,13 +3664,18 @@ def kf_receiver_phase(capture, scen, kernels) -> dict:
 
 
 def conf_cli_run(run: str, conf: Path, scen, ref_first: dict,
-                 delay_offset: float = 0.0) -> dict:
+                 delay_offset: float = 0.0, ttff=(10.0, 32.0),
+                 on_receiver=None, keep: dict | None = None) -> dict:
     """The .conf/CLI entry point on ``conf`` through K1, held to the
-    position gates and to ``ref_first`` (phase 7's first acquisition: the
-    same satellites, Doppler within one bin, delay within one sample once
-    ``delay_offset`` samples, a filter's group delay, are taken off).
-    Times each plan's loop closer (``after_block``) where it has one and
-    reports its share of the wall."""
+    position gates (first fix inside ``ttff``) and to ``ref_first``
+    (phase 7's first acquisition: the same satellites, Doppler within one
+    bin, delay within one sample once ``delay_offset`` samples, a
+    filter's group delay, are taken off). Times each plan's loop closer
+    (``after_block``) where it has one and reports its share of the wall.
+    ``on_receiver(rx)`` is called as soon as the CLI has built its
+    Receiver (a watcher thread may start there); ``keep`` receives the
+    Receiver, every acquisition's started channels and the CLI's
+    output."""
     from gnss_sdr_tpu_torch import main as cli
     from gnss_sdr_tpu_torch.config.configuration import FileConfiguration
     from gnss_sdr_tpu_torch.ops import correlator as k3
@@ -3644,6 +3695,8 @@ def conf_cli_run(run: str, conf: Path, scen, ref_first: dict,
     def recorded(self, *a, **kw):
         init(self, *a, **kw)
         made.append(self)
+        if on_receiver is not None:
+            on_receiver(self)
         for g in self.groups:
             if g.loop_closer is not None:
                 after = g.loop_closer.after_block
@@ -3665,8 +3718,9 @@ def conf_cli_run(run: str, conf: Path, scen, ref_first: dict,
     Receiver.acquire = acquired
     k1.track_blocked.launches = 0
     k3.correlator.launches = 0
+    out = io.StringIO()
     try:
-        with contextlib.redirect_stdout(io.StringIO()):
+        with contextlib.redirect_stdout(out):
             torch.cuda.synchronize()
             t = time.perf_counter()
             status = cli.run_from_config(FileConfiguration(conf))
@@ -3676,6 +3730,9 @@ def conf_cli_run(run: str, conf: Path, scen, ref_first: dict,
         Tracker.process_device = process
         Receiver.__init__ = init
         Receiver.acquire = acquire
+    if keep is not None:
+        keep.update(rx=made[-1], acquisitions=acquisitions,
+                    stdout=out.getvalue())
     n1, n3 = k1.track_blocked.launches, k3.correlator.launches
     if not (blocks[0] > 0 and n1 == blocks[0] and n3 == 0):
         raise AssertionError(f"{run}: {n1} K1 and {n3} K3 launches for "
@@ -3688,8 +3745,8 @@ def conf_cli_run(run: str, conf: Path, scen, ref_first: dict,
     lags = [abs(first[k][1] - delay_offset - ref_first[k][1]) % spc
             for k in first if k in ref_first]
     ld = [min(d, spc - d) for d in lags]
-    e = dict(position_gates(status, scen), blocks=blocks[0], k1_launches=n1,
-             first_acquired=sorted(p for _, p in first),
+    e = dict(position_gates(status, scen, ttff), blocks=blocks[0],
+             k1_launches=n1, first_acquired=sorted(p for _, p in first),
              phase7_first_acquired=sorted(p for _, p in ref_first),
              doppler_diff_hz=max(dd, default=0.0),
              delay_diff_samples=max(ld, default=0.0),
@@ -3871,6 +3928,586 @@ def conditioner_stages_phase(capture) -> dict:
     return out
 
 
+# the JAX tracker's host dtypes for a dump file's arrays (its unpacker
+# widens integer leaves to int64; tests/test_torch_host_options.py holds
+# the port's files to the JAX package's)
+DUMP_DTYPES = {"prompt": np.complex64, "taps": np.complex64,
+               "boundary": np.bool_, "acc_prompt": np.complex64,
+               "acc_samples": np.int64, "carrier_doppler": np.float32,
+               "code_freq": np.float64, "carrier_phase": np.float64,
+               "rem_code_phase": np.float64, "n_samples": np.int64,
+               "abs_sample_end": np.int64}
+
+
+def check_dumps(run: str, trk: Path, acq: Path, periods: int,
+                channels: int, attempts: int) -> dict:
+    """A run's tracking and acquisition dump files: the JAX dump's keys
+    and dtypes, ``periods`` x ``channels`` rows (the blocks times K), one
+    acquisition row per PRN searched; raises if not."""
+    t = np.load(trk)
+    a = np.load(acq)["acquisitions"]
+    bad = {k: str(t[k].dtype) for k in t.files
+           if t[k].dtype != DUMP_DTYPES.get(k)}
+    e = dict(tracking_keys=sorted(t.files), tracking_bytes=trk.stat().st_size,
+             periods=int(t["prompt"].shape[0]),
+             channels=int(t["prompt"].shape[1]), want_periods=periods,
+             acquisition_rows=len(a), want_rows=attempts,
+             acquisition_fields=list(a.dtype.names), wrong_dtypes=bad)
+    if not (sorted(t.files) == sorted(DUMP_DTYPES) and not bad
+            and all(t[k].shape[:2] == (periods, channels) for k in t.files)
+            and len(a) == attempts and a.dtype.names[0] == "prn"):
+        raise AssertionError(f"{run}: dump files {e}")
+    return e
+
+
+def count_attempts(rx, attempts: list) -> None:
+    """Adds to ``attempts[0]`` the PRNs that each acquisition of ``rx``'s
+    first group searches: one acquisition-dump row each."""
+    g = rx.groups[0]
+    acquire = g.acq.acquire
+
+    def counted(x, rows, *a, **kw):
+        attempts[0] += len(rows)
+        return acquire(x, rows, *a, **kw)
+
+    g.acq.acquire = counted
+
+
+def dyn_pvtkf_phase(capture, scen, tmp: Path) -> dict:
+    """Phase 38, gps8-dyn-pvtkf: tests/test_dynamic.py's moving receiver
+    (12/-8 m/s ENU, 6 channels, 32 s, seed 1) with the PVT Kalman filter
+    (``enable_pvt_kf``; not the tracking Kalman mode of phase 34) and
+    ``carrier_smoothing_epochs=100``, 1 s feeds, through K1, with the
+    tracking and acquisition dumps on (``plan.dump_filename``,
+    ``plan.acq_dump_filename``). Gates: the test's (>= 8 fixes, 3D
+    position RMSE < 10 m and velocity RMSE < 1 m/s over fixes[3:]); K1
+    once a block; the dump files with the JAX dump's keys and dtypes, the
+    blocks times K periods and one acquisition row per PRN searched."""
+    from gnss_sdr_tpu_torch.ops import correlator as k3
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.receiver.plans import gps_l1ca_plan
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+
+    plan = gps_l1ca_plan(FS, num_channels=6)
+    plan.dump_filename = str(tmp / "tracking_dyn.npz")
+    plan.acq_dump_filename = str(tmp / "acquisition_dyn.npz")
+    rx = Receiver(ReceiverConfig(fs=FS, num_channels=6, enable_pvt_kf=True,
+                                 carrier_smoothing_epochs=100), plans=[plan])
+    attempts = [0]
+    count_attempts(rx, attempts)
+    k1.track_blocked.launches = 0
+    k3.correlator.launches = 0
+    wall, blocks = drive_receiver(rx, capture, FS)
+    n1, n3 = k1.track_blocked.launches, k3.correlator.launches
+    t = time.perf_counter()
+    rx.close()
+    flush_s = time.perf_counter() - t
+    if not (blocks > 0 and n1 == blocks and n3 == 0):
+        raise AssertionError(f"gps8-dyn-pvtkf: {n1} K1 and {n3} K3 "
+                             f"launches for {blocks} blocks")
+    fixes = rx.status.fixes
+    pos = [np.linalg.norm(f.pos_ecef - scen.rx_ecef_at(
+        f.tow_s - scen.cfg.tow_start_s)) for f in fixes[3:]]
+    vel = [np.linalg.norm(f.vel_ecef - scen.rx_vel_ecef) for f in fixes[3:]]
+    e = dict(fixes=len(fixes), pvt_kf=type(rx.pvt_kf).__name__,
+             pos_rmse_3d_m=float(np.sqrt(np.mean(np.square(pos))))
+             if pos else math.inf,
+             vel_rmse_3d_mps=float(np.sqrt(np.mean(np.square(vel))))
+             if vel else math.inf,
+             ttff_s=rx.status.ttff_s, blocks=blocks, k1_launches=n1,
+             dump_flush_s=flush_s, wall_s=wall,
+             realtime_factor=scen.cfg.duration_s / wall)
+    e.update(check_dumps("gps8-dyn-pvtkf", tmp / "tracking_dyn.npz",
+                         tmp / "acquisition_dyn.npz",
+                         blocks * plan.trk_conf.steps_per_block, 6,
+                         attempts[0]))
+    emit("e2e_gps8_dyn_pvtkf", **e)
+    if not (e["fixes"] >= 8 and e["pos_rmse_3d_m"] < 10.0
+            and e["vel_rmse_3d_mps"] < 1.0):
+        raise AssertionError(f"gps8-dyn-pvtkf gates failed: {e}")
+    return e
+
+
+# phase 39's gates on the PPP-refined fixes, mean 2D and 3D m over
+# fixes[3:]: the JAX package's _refine_ppp gives 6.034 / 13.84 m on this
+# run's sequence (replayed on the CPU through both packages, bit-equal to
+# the port's fixes on the card), where phase 17's LS fixes give 0.81 /
+# 1.96 m; phase 17's own gates (2 / 5 m) are out of the reference's
+# reach on 4 dual-band satellites over 32 s (ROADMAP section 3)
+PPP_GATES = (6.1, 13.9)
+# tests/test_tides.py:89-99's ocean-loading table (station WTZR)
+BLQ_WTZR = """$$ Ocean loading displacement
+$$ COMMENT
+  WTZR
+$$ M2 S2 N2 K2 K1 O1 P1 Q1 MF MM SSA
+  .00325 .00112 .00069 .00031 .00117 .00087 .00039 .00017 .00009 .00005 .00004
+  .00103 .00036 .00023 .00010 .00026 .00013 .00009 .00003 .00002 .00001 .00001
+  .00049 .00017 .00011 .00005 .00052 .00039 .00017 .00008 .00003 .00002 .00001
+   -54.3  -27.9  -74.0  -25.5  -58.9  -96.0  -60.8 -131.0    6.1    3.4    1.9
+    72.5  105.1   52.1  106.5   43.0   27.0   41.7   17.9 -170.8 -176.3 -179.4
+    88.0  118.8   68.7  119.5  -27.4  -54.1  -29.0  -79.7    6.6    1.7    0.8
+"""
+
+
+def write_ppp_replay(path: Path, seq: list, wavelengths: list) -> None:
+    """Phase 39's sequence as gzipped JSON: per epoch the LS fix, its
+    clock bias, t_rx, the usable observation rows, the keys of their
+    ephemerides (an index into one table of distinct ephemerides, each
+    with its dataclass's module under the package and its name) and the
+    PPP-refined fix; the observables channels' wavelengths beside it."""
+    import gzip
+
+    table, index = [], {}
+
+    def eph_ref(v):
+        rec = [type(v).__module__.split(".", 1)[1], type(v).__name__,
+               {k: (x.item() if isinstance(x, np.generic) else x)
+                for k, x in dataclasses.asdict(v).items()}]
+        key = json.dumps(rec, sort_keys=True)
+        if key not in index:
+            index[key] = len(table)
+            table.append(rec)
+        return index[key]
+
+    def row(o):
+        return {k: (x.item() if isinstance(x, np.generic) else x)
+                for k, x in dataclasses.asdict(o).items()}
+
+    epochs = [dict(ls_pos=q["ls_pos"].tolist(),
+                   clock_bias_s=float(q["clock_bias_s"]),
+                   t_rx=float(q["t_rx"]),
+                   ephemerides=[[k[0], int(k[1]), eph_ref(v)]
+                                for k, v in sorted(q["ephemerides"].items())],
+                   rows=[row(o) for o in q["rows"]],
+                   ppp_pos=q["ppp_pos"].tolist()) for q in seq]
+    with gzip.open(path, "wt") as f:
+        json.dump(dict(wavelengths=[float(w) for w in wavelengths],
+                       ephemerides=table, epochs=epochs), f)
+
+
+def ppp_phase(caps, ref: dict, tmp: Path) -> dict:
+    """Phase 39, l1l5-ppp: phase 17's L1 + L5 receiver on its capture
+    with positioning_mode="PPP_Static", earth_tide=2 (solid, pole and
+    ocean tides), phwindup and the BLQ table of tests/test_tides.py read
+    by the port's ``read_blq``, through K1; idle L5 channels re-acquired
+    after each feed (the filter needs 4 satellites on both bands, and
+    phase 17's loop stops acquiring at 3 on L5). Gates: the PPP filter
+    refined epochs, every one valid; as many fixes as phase 17 (``ref``);
+    the refined fixes within PPP_GATES over fixes[3:]. Each epoch's LS
+    and PPP errors are reported side by side, and the run's (LS fix,
+    observations, ephemerides, t_rx) sequence is saved under chiprun_out/
+    for a replay through both packages' ``_refine_ppp``
+    (tests/test_torch_host_options.py holds a copy)."""
+    from gnss_sdr_tpu_torch.pvt.coords import ecef_to_enu
+    from gnss_sdr_tpu_torch.pvt.tides import read_blq
+
+    blq_path = tmp / "wtzr.blq"
+    blq_path.write_text(BLQ_WTZR)
+    blq = read_blq(blq_path, "WTZR")
+    scen = gal_scenario("dual_l1")
+    epochs, valid, ppp_s, seq = [0], [0], [0.0], []
+
+    def watch(rx):
+        process, refine = rx.ppp.process_epoch, rx._refine_ppp
+
+        def counted(*a, **kw):
+            t = time.perf_counter()
+            psol = process(*a, **kw)
+            ppp_s[0] += time.perf_counter() - t
+            epochs[0] += 1
+            valid[0] += bool(psol.valid)
+            return psol
+
+        def refined(sol, usable, t_rx):
+            ls = sol.pos_ecef.copy()
+            # the ephemerides of this epoch (an L5 satellite's key may
+            # hold the CNAV or the LNAV ephemeris, whichever came last)
+            ephs = {k: dataclasses.replace(v)
+                    for k, v in rx.ephemerides.items()
+                    if k in {(o.system, o.prn) for o in usable}}
+            seq.append(dict(ls_pos=ls, clock_bias_s=sol.clock_bias_s,
+                            t_rx=t_rx, ephemerides=ephs,
+                            rows=[dataclasses.replace(o) for o in usable]))
+            refine(sol, usable, t_rx)
+            seq[-1]["ppp_pos"] = sol.pos_ecef.copy()
+
+        rx.ppp.process_epoch = counted
+        rx._refine_ppp = refined
+
+    rx, nb, n1, wall, _ = dual_band_run(
+        caps, reacquire=True, on_receiver=watch,
+        positioning_mode="PPP_Static", earth_tide=2, phwindup=True, blq=blq)
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    write_ppp_replay(ROOT / "chiprun_out" / "l1l5_ppp_replay.json.gz", seq,
+                     [c.wavelength_m for c in rx.obs.ch])
+    lat = np.deg2rad(scen.cfg.rx_lat_deg)
+    lon = np.deg2rad(scen.cfg.rx_lon_deg)
+
+    def err(p):
+        enu = ecef_to_enu(p - scen.rx_ecef, lat, lon)
+        return float(np.hypot(enu[0], enu[1])), float(np.linalg.norm(enu))
+
+    side = [(*err(q["ls_pos"]), *err(q["ppp_pos"])) for q in seq]
+    ls = np.array([r[:2] for r in side[3:]]).reshape(-1, 2)
+    enu = enu_errors(rx.status.fixes[3:], scen)
+    e = dict(fixes=len(rx.status.fixes), phase17_fixes=ref["fixes"],
+             l5_prns=rx.groups[1].channel_prn,
+             ppp_mode=rx.ppp.mode, oload=rx.ppp.oload is blq,
+             ppp_epochs=epochs[0], ppp_valid=valid[0],
+             ppp_ms_per_epoch=1e3 * ppp_s[0] / max(epochs[0], 1),
+             ppp_share=ppp_s[0] / wall,
+             refine_calls=len(seq),
+             mean_2d_m=float(np.hypot(enu[:, 0], enu[:, 1]).mean())
+             if len(enu) else math.inf,
+             mean_3d_m=float(np.linalg.norm(enu, axis=1).mean())
+             if len(enu) else math.inf,
+             ls_mean_2d_m=float(ls[:, 0].mean()) if len(ls) else math.inf,
+             ls_mean_3d_m=float(ls[:, 1].mean()) if len(ls) else math.inf,
+             phase17_mean_2d_m=ref["mean_2d_m"],
+             phase17_mean_3d_m=ref["mean_3d_m"], gates_m=PPP_GATES,
+             ls_vs_ppp_2d_3d_m=[[round(v, 4) for v in r] for r in side[::10]],
+             blocks_l1=nb[0], blocks_l5=nb[1], k1_launches=n1, wall_s=wall,
+             realtime_factor=scen.cfg.duration_s / wall)
+    emit("e2e_l1l5_ppp", **e)
+    if not (epochs[0] > 0 and valid[0] == epochs[0]
+            and e["fixes"] == ref["fixes"]
+            and e["mean_2d_m"] < PPP_GATES[0]
+            and e["mean_3d_m"] < PPP_GATES[1]):
+        raise AssertionError(f"l1l5-ppp gates failed: {e}")
+    return e
+
+
+def osnma_phase(capture, scen, ref: dict) -> dict:
+    """Phase 40, e1b-osnma: phase 12's E1-B receiver on its capture with
+    ``osnma=True`` and ``osnma_strict=True``, through K1. The capture
+    carries no signer, so no satellite authenticates. Gates: the same
+    decoded pages and ephemerides as phase 12 (``ref``); the OSNMA manager
+    anchored every Galileo channel the observables anchored (>= 4); zero
+    fixes, since the strict filter drops every unauthenticated Galileo
+    satellite and the run is Galileo only. Reports the OSNMA fields the
+    manager received (none is a valid outcome on an unsigned capture)."""
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.receiver.plans import galileo_e1b_plan
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+
+    fs = scen.cfg.fs
+    rx = Receiver(ReceiverConfig(fs=fs, num_channels=6, osnma=True,
+                                 osnma_strict=True),
+                  plans=[galileo_e1b_plan(fs=fs, num_channels=6)])
+    fields, push = [0], rx.osnma.push_fields
+
+    def counted(gch, prn, week, eph, flds):
+        fields[0] += len(flds)
+        return push(gch, prn, week, eph, flds)
+
+    rx.osnma.push_fields = counted
+    k1.track_blocked.launches = 0
+    wall, blocks = drive_receiver(rx, capture, fs)
+    n1 = k1.track_blocked.launches
+    anchored = sorted(c for c, st in enumerate(rx.obs.ch) if st.anchored)
+    e = dict(subframes=rx.status.subframes,
+             phase12_subframes=ref["subframes"],
+             ephemeris_keys=sorted(rx.ephemerides),
+             obs_anchored=anchored, osnma_anchored=sorted(rx.osnma._anchor),
+             osnma_fields=fields[0], authenticated=sorted(rx.osnma.auth_ok),
+             kroot_verified=rx.osnma.rx.kroot_verified,
+             fixes=len(rx.status.fixes), blocks=blocks, k1_launches=n1,
+             wall_s=wall, realtime_factor=scen.cfg.duration_s / wall)
+    emit("e2e_e1b_osnma", **e)
+    if not (blocks > 0 and n1 == blocks
+            and e["subframes"] == ref["subframes"]
+            and [list(k) for k in e["ephemeris_keys"]]
+            == [list(k) for k in ref["ephemeris_keys"]]
+            and len(anchored) >= 4 and set(anchored) <= set(rx.osnma._anchor)
+            and e["fixes"] == 0):
+        raise AssertionError(f"e1b-osnma gates failed: {e}")
+    return e
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _status_reply(conn) -> str:
+    """One ``status`` reply of the telecommand server: up to its fix
+    line."""
+    buf = b""
+    while b"fix:" not in buf or not buf.endswith(b"\r\n"):
+        data = conn.recv(4096)
+        if not data:
+            break
+        buf += data
+    return buf.decode()
+
+
+def ctl_cli_phase(gps_conf: Path, scen, ref_first: dict, tmp: Path) -> dict:
+    """Phase 41, gps8-ctl: conf/gps_l1_file.conf's keys (phase 7's conf on
+    its ibyte copy of gps8's capture) through the CLI twice, through K1,
+    with the control plane on.
+
+    Run A, cold: ``GNSS-SDR.assistance_xml`` names a missing file, which
+    the run writes at its end; the telecommand server on a free port with
+    a client thread that sends ``status`` once at once (a row per channel,
+    ``fix: none``) and once after the first fix (a ``fix: lat`` line);
+    SUPL against 127.0.0.1 on a closed port; the tracking and acquisition
+    dumps. Run B, warm: run A's XML loaded; a command FIFO with a writer
+    thread that sends ``reset`` once the receiver has its first fix.
+
+    Gates: run A meets phase 7's gates and first acquisition; prints
+    ``SUPL assistance failed``; its XML holds every ephemeris it decoded;
+    its dumps load as phase 38's. Run B's TTFF is below run A's and below
+    17 s (tests/test_ttff.py's bound); after the reset it has no channel
+    left, acquires again and fixes again before the end; its fixes meet
+    the position gates. The threads read only host state (the channel
+    controls, PRNs and fixes); the reset is applied on the main thread
+    between blocks."""
+    import socket
+    import stat
+    import threading
+
+    from gnss_sdr_tpu_torch.receiver import telecommand
+    from gnss_sdr_tpu_torch.receiver.assistance import load_assistance
+
+    base = gps_conf.read_text()
+    xml = tmp / "assist.xml"
+    port = _free_port()
+    common = f"GNSS-SDR.assistance_xml={xml}\n"
+    conf_a = tmp / "ctl_a.conf"
+    conf_a.write_text(base + common + "".join(f"{k}={v}\n" for k, v in (
+        ("GNSS-SDR.telecommand_enabled", "true"),
+        ("GNSS-SDR.telecommand_tcp_port", port),
+        ("GNSS-SDR.SUPL_gps_enabled", "true"),
+        ("GNSS-SDR.SUPL_gps_ephemeris_server", "127.0.0.1"),
+        ("GNSS-SDR.SUPL_gps_ephemeris_port", _free_port()),
+        ("Tracking_1C.dump", "true"),
+        ("Tracking_1C.dump_filename", tmp / "tracking_1C.npz"),
+        ("Acquisition_1C.dump", "true"),
+        ("Acquisition_1C.dump_filename", tmp / "acquisition_1C.npz"))))
+    done = threading.Event()
+    replies: dict = {}
+    attempts = [0]
+
+    def client(rx):
+        while not done.is_set():
+            try:
+                conn = socket.create_connection(("127.0.0.1", port),
+                                                timeout=10)
+                break
+            except OSError:
+                time.sleep(0.05)
+        else:
+            return
+        with conn:
+            conn.recv(128)                          # banner
+            conn.sendall(b"status\n")
+            replies["early"] = _status_reply(conn)
+            while not rx.status.fixes and not done.is_set():
+                time.sleep(0.05)
+            conn.sendall(b"status\n")
+            replies["after_fix"] = _status_reply(conn)
+            conn.sendall(b"exit\n")
+
+    threads = []
+
+    def start(target, prepare=None):
+        def on_receiver(rx):
+            if prepare is not None:
+                prepare(rx)
+            th = threading.Thread(target=target, args=(rx,), daemon=True)
+            threads.append(th)
+            th.start()
+        return on_receiver
+
+    keep_a: dict = {}
+    try:
+        a = conf_cli_run("cli_ctl_cold", conf_a, scen, ref_first,
+                         on_receiver=start(
+                             client, lambda rx: count_attempts(rx, attempts)),
+                         keep=keep_a)
+    finally:
+        done.set()
+        for th in threads:
+            th.join(timeout=10)
+    rx_a = keep_a["rx"]
+    early = replies.get("early", "")
+    rows = [ln for ln in early.splitlines() if ln.strip().split()[1:2]
+            == [rx_a.groups[0].plan.name]]
+    saved = load_assistance(xml)
+    decoded = sorted(rx_a.ephemerides)
+    e = dict(run_a_ttff_s=a["ttff_s"], run_a_fixes=a["fixes"],
+             run_a_factor=a["realtime_factor"],
+             status_rows=len(rows),
+             early_fix_none="fix: none" in early,
+             after_fix_line=next((ln for ln in replies.get(
+                 "after_fix", "").splitlines() if ln.startswith("fix:")),
+                 None),
+             supl_failed=[ln for ln in keep_a["stdout"].splitlines()
+                          if ln.startswith("SUPL assistance failed")],
+             xml_ephemerides=sorted(saved["ephemerides"]),
+             decoded_ephemerides=decoded)
+    e["dumps"] = check_dumps(
+        "cli_ctl_cold", tmp / "tracking_1C.npz", tmp / "acquisition_1C.npz",
+        a["blocks"] * rx_a.groups[0].plan.trk_conf.steps_per_block,
+        rx_a.groups[0].plan.num_channels, attempts[0])
+    if not (len(rows) == 8 and e["early_fix_none"]
+            and (e["after_fix_line"] or "").startswith("fix: lat")
+            and e["supl_failed"] and decoded
+            and e["xml_ephemerides"] == decoded):
+        emit("cli_ctl", **e)
+        raise AssertionError(f"gps8-ctl run A gates failed: {e}")
+
+    # run B, warm, with a command FIFO and a reset after the first fix
+    fifo = tmp / "cmd.fifo"
+    conf_b = tmp / "ctl_b.conf"
+    conf_b.write_text(base + common + f"GNSS-SDR.command_fifo={fifo}\n")
+    done.clear()
+    threads.clear()
+    applied: list = []
+    dispatch = telecommand.dispatch_command
+
+    def recorded(receiver, cmd):
+        g = receiver.groups[0]
+        before = len(g.active_channels())
+        dispatch(receiver, cmd)
+        applied.append(dict(cmd=cmd, active_before=before,
+                            active_after=len(g.active_channels()),
+                            fixes=len(receiver.status.fixes),
+                            stream_s=receiver._stream_end / FS))
+
+    def writer(rx):
+        while not done.is_set() and not (
+                fifo.exists() and stat.S_ISFIFO(fifo.stat().st_mode)
+                and rx.status.fixes):
+            time.sleep(0.05)
+        if done.is_set():
+            return
+        fd = os.open(fifo, os.O_WRONLY)
+        os.write(fd, b"reset\n")
+        os.close(fd)
+
+    telecommand.dispatch_command = recorded
+    keep_b: dict = {}
+    try:
+        b = conf_cli_run("cli_ctl_warm", conf_b, scen, ref_first,
+                         ttff=(0.0, 17.0), on_receiver=start(writer),
+                         keep=keep_b)
+    finally:
+        telecommand.dispatch_command = dispatch
+        done.set()
+        for th in threads:
+            th.join(timeout=10)
+    rx_b = keep_b["rx"]
+    reset = applied[0] if applied else {}
+    e.update(run_b_ttff_s=b["ttff_s"], run_b_fixes=b["fixes"],
+             run_b_factor=b["realtime_factor"], reset=reset,
+             acquisitions_b=len(keep_b["acquisitions"]),
+             reacquired=[sorted(p for _, p in s)
+                         for s in keep_b["acquisitions"][1:] if s],
+             active_at_end=len(rx_b.groups[0].active_channels()),
+             fixes_after_reset=len(rx_b.status.fixes) - reset.get(
+                 "fixes", len(rx_b.status.fixes)),
+             fifo_removed=not fifo.exists())
+    emit("cli_ctl", **e)
+    if not (b["ttff_s"] < a["ttff_s"] and b["ttff_s"] < 17.0
+            and [x["cmd"] for x in applied] == ["reset"]
+            and reset["active_before"] > 0 and reset["active_after"] == 0
+            and e["active_at_end"] >= 4 and e["fixes_after_reset"] > 0
+            and e["fifo_removed"]):
+        raise AssertionError(f"gps8-ctl gates failed: {e}")
+    return e
+
+
+def start_ttff_trials():
+    """Phase 42's ``ttff`` trials of seed 1, cold over the tool's 32 s and
+    warm over tests/test_ttff.py's 17 s (the tool's own warm trial stops at
+    12 s, before this seed's warm fix: ROADMAP section 3), one worker
+    process each, started before the Galileo captures so that the trials'
+    signal generation overlaps the capture pool, where the main process
+    measures nothing on the card. Returns the pool and the pending
+    results; the pool's exit handler stops its workers if a phase fails
+    first."""
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(2)
+    return pool, (time.perf_counter(), pool.map_async(
+        ttff_trial, [(False, 32.0), (True, 17.0)], chunksize=1))
+
+
+def tools_phase(ttff_pool, ttff_pending) -> dict:
+    """Phase 42, the port's tools on the card: ``front_end_cal.calibrate``
+    on tests/test_aux.py's case (a 3210 Hz LO error; within 60 Hz, RMS
+    residual < 60 Hz); ``bench_micro`` at a few repetitions (the seven
+    benches, every row positive); ``ttff``'s trials from
+    ``start_ttff_trials`` (both fix, warm below cold and below 17 s; the
+    receiver through K1 in each). Their lines are printed."""
+    from gnss_sdr_tpu_torch.simulate.scenario import GpsScenario, ScenarioConfig
+    from gnss_sdr_tpu_torch.tools import bench_micro, front_end_cal
+
+    scen = GpsScenario(ScenarioConfig(fs=FS, tow_start_s=7314.0,
+                                      duration_s=0.2, cn0_dbhz=46.0,
+                                      max_sats=8, seed=2))
+    x = scen.generate(0, int(0.12 * FS))
+    x = (x * np.exp(2j * np.pi * 3210.0 * np.arange(len(x)) / FS)).astype(
+        np.complex64)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cal = front_end_cal.calibrate(x, FS, scen.ephs, scen.rx_ecef, 7314.0)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t
+    fe = dict(ok=cal["ok"], f_offset_hz=cal.get("f_offset_hz"),
+              ppm=cal.get("ppm"), resid_rms_hz=cal.get("resid_rms_hz"),
+              prns=[r[0] for r in cal["rows"]], seconds=cal_s)
+    emit("tool_front_end_cal", **fe)
+    if not (cal["ok"] and abs(cal["f_offset_hz"] - 3210.0) < 60.0
+            and cal["resid_rms_hz"] < 60.0):
+        raise AssertionError(f"front_end_cal gates failed: {fe}")
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rows = bench_micro.run(reps=5)
+    print(out.getvalue(), end="", flush=True)
+    names = {b.__name__ for b in bench_micro.ALL}
+    bm = dict(rows=len(rows), benches=len(names),
+              positive=all(r["value"] > 0 for r in rows))
+    emit("tool_bench_micro", **bm)
+    if not (len(names) == 7 and rows and bm["positive"]):
+        raise AssertionError(f"bench_micro gates failed: {bm}")
+
+    t0, pending = ttff_pending
+    t = time.perf_counter()
+    with ttff_pool:
+        (cold, n_cold, w_cold), (warm, n_warm, w_warm) = pending.get(
+            timeout=600)
+    tt = dict(lines=[f"cold trial 0: TTFF {cold} s  (wall {w_cold:.0f} s)",
+                     f"warm trial 0: TTFF {warm} s  (wall {w_warm:.0f} s)"],
+              cold_ttff_s=cold, warm_ttff_s=warm,
+              k1_launches=[n_cold, n_warm], since_start_s=t - t0,
+              waited_s=time.perf_counter() - t)
+    emit("tool_ttff", **tt)
+    if not (cold is not None and warm is not None and warm < cold
+            and warm < 17.0 and n_cold > 0 and n_warm > 0):
+        raise AssertionError(f"ttff gates failed: {tt}")
+    return dict(front_end_cal=fe, ttff=tt, bench_micro=rows)
+
+
+def ttff_trial(args) -> tuple:
+    """One ``tools/ttff.py`` trial of seed 1 on the card in a worker
+    process: (warm, duration s) -> (TTFF s or None, K1 launches, wall s)."""
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.tools import ttff
+
+    warm, duration = args
+    k1.track_blocked.launches = 0
+    t = time.perf_counter()
+    got = ttff.run_trial(seed=1, duration_s=duration, warm=warm)
+    torch.cuda.synchronize()
+    return got, k1.track_blocked.launches, time.perf_counter() - t
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3883,7 +4520,6 @@ def main() -> int:
     from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
     from gnss_sdr_tpu_torch.receiver.plans import gps_l1ca_plan
     from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
-    from gnss_sdr_tpu_torch.simulate.scenario import GpsScenario, ScenarioConfig
     from gnss_sdr_tpu_torch.tracking.tracker import Tracker
 
     t_start = time.perf_counter()
@@ -3978,10 +4614,8 @@ def main() -> int:
 
     # ---- 6. end to end: gps8 on the 32 s scenario ------------------------
     t0 = time.perf_counter()
-    scen = GpsScenario(ScenarioConfig(
-        fs=FS, tow_start_s=7314.0, duration_s=32.0, cn0_dbhz=46.0,
-        rx_clock_bias_s=2.1e-4, max_sats=8, min_elevation_deg=15.0, seed=1))
-    capture = scen.generate(0, scen.total_samples)
+    scen = gal_scenario("gps8")
+    capture = make_captures(["gps8"], check=("gps8", 3))["gps8"]
     emit("capture", seconds=time.perf_counter() - t0, sats=len(scen.prns),
          samples=len(capture))
 
@@ -4034,7 +4668,8 @@ def main() -> int:
          realtime_factor=6.0 / wall6)
 
     # ---- 7. the .conf/CLI path, through K1 and through K2 ----------------
-    # (its ibyte copy of the capture is read again by phase 35)
+    # (its ibyte copy of the capture and its conf are read again by phases
+    # 35 and 41)
     gps_tmp = tempfile.TemporaryDirectory()
     runs = cli_phase(capture, scen, Path(gps_tmp.name))
     kernels["track_full"]["launches"] = runs["track_full"]["k2_launches"]
@@ -4051,8 +4686,11 @@ def main() -> int:
     # ---- 11. K1 and K2 at the Galileo E1 shape --------------------------
     e1_kernel_phase(dev)
 
-    # ---- the Galileo, dual-band and GLONASS captures, in worker processes
-    gal_caps = make_captures(list(CAPTURES), check=("e5a", 3))
+    # ---- the Galileo, dual-band and GLONASS captures, in worker processes,
+    # beside phase 42's ttff trials
+    ttff_pool, ttff_pending = start_ttff_trials()
+    gal_caps = make_captures([k for k in CAPTURES if k != "gps8"],
+                             check=("e5a", 3))
 
     # ---- 12. Galileo E1-B from Python (K1) -------------------------------
     e1b = galileo_python_phase(gal_caps["e1b"], gal_scenario("e1b"), kernels)
@@ -4074,7 +4712,7 @@ def main() -> int:
     long_code_kernel_phase(dev)
 
     # ---- 17. GPS L1 + L5 from Python (K1, assisted L5 acquisition) -------
-    dual_band_phase(gal_caps, kernels)
+    l1l5 = dual_band_phase(gal_caps, kernels)
 
     # ---- 18. Galileo E5a alone, assisted start; the three engines ---------
     e5a_phase(gal_caps, kernels)
@@ -4136,13 +4774,32 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         gaussian_cli_phase(Path(gps_tmp.name) / "capture_l1.dat", scen,
                            runs["first_acquired"], Path(tmp))
-    gps_tmp.cleanup()
     tcp_phase()
     with tempfile.TemporaryDirectory() as tmp:
         xlating_cli_phase(capture, scen, runs["first_acquired"], Path(tmp))
     conditioner_stages_phase(capture)
 
-    # ---- 38. kernels -----------------------------------------------------
+    # ---- 38. gps8-dyn-pvtkf: the PVT Kalman filter and the dumps (K1) -----
+    with tempfile.TemporaryDirectory() as tmp:
+        dyn_pvtkf_phase(gal_caps["dyn"], gal_scenario("dyn"), Path(tmp))
+
+    # ---- 39. l1l5-ppp: PPP_Static with the tides on phase 17's run (K1) ---
+    with tempfile.TemporaryDirectory() as tmp:
+        ppp_phase(gal_caps, l1l5, Path(tmp))
+
+    # ---- 40. e1b-osnma: OSNMA strict mode on phase 12's run (K1) ----------
+    osnma_phase(gal_caps["e1b"], gal_scenario("e1b"), e1b)
+
+    # ---- 41. gps8-ctl: the CLI's control plane, cold and warm (K1) --------
+    with tempfile.TemporaryDirectory() as tmp:
+        ctl_cli_phase(Path(gps_tmp.name) / "gps_l1_file.conf", scen,
+                      runs["first_acquired"], Path(tmp))
+    gps_tmp.cleanup()
+
+    # ---- 42. the tools: front_end_cal, ttff, bench_micro -----------------
+    tools_phase(ttff_pool, ttff_pending)
+
+    # ---- 43. kernels -----------------------------------------------------
     meta = {
         "track_blocked": dict(
             route="cuda", source="gnss_sdr_tpu_torch/csrc/track_blocked.cu",

@@ -13,10 +13,14 @@ tracking engine run kernel K2 instead of K1 (``tracking/fused.py``).
 
 ``run_from_config`` takes the device ("cuda" by default; "cpu" runs every
 kernel's plain version, as the tests do). The CLI has the JAX package's
-flags and no device flag. SUPL assistance, the assistance XML, the
-telecommand TCP server, the command FIFO and the ocean-loading table are
-not ported: their keys raise ``NotImplementedError`` (ROADMAP queue
-item 16).
+flags and no device flag. The control plane is the JAX CLI's: the
+assistance XML warm start and save (``GNSS-SDR.assistance_xml``), SUPL
+A-GNSS assistance (``GNSS-SDR.SUPL_gps_enabled``), the telecommand TCP
+server (``GNSS-SDR.telecommand_enabled``), the command FIFO
+(``GNSS-SDR.command_fifo``) and the ocean-loading table of the PPP modes
+(``PVT.blq_file``, ``PVT.blq_station``). Their servers and readers run on
+threads that read only host state; the commands they queue are applied on
+the main thread between blocks.
 """
 
 from __future__ import annotations
@@ -49,23 +53,6 @@ log = get_logger(__name__)
 # Galileo E5b groups for want of a chain; here they take the next chain.
 _BAND_ORDER = ("L1", "L5", "B1", "G1", "G2", "E5b")
 
-# keys whose features the port does not carry yet (ROADMAP queue item 16)
-_UNPORTED_KEYS = (
-    ("GNSS-SDR.assistance_xml", "", "assistance XML warm start"),
-    ("GNSS-SDR.SUPL_gps_enabled", False, "SUPL A-GNSS assistance"),
-    ("GNSS-SDR.telecommand_enabled", False, "telecommand TCP server"),
-    ("GNSS-SDR.command_fifo", "", "command FIFO"),
-    ("PVT.blq_file", "", "ocean-loading table"),
-)
-
-
-def _check_unported(cfg) -> None:
-    for key, off, what in _UNPORTED_KEYS:
-        if cfg.property(key, off):
-            raise NotImplementedError(
-                f"{key}: {what} is not ported yet (ROADMAP queue item 16)")
-
-
 def _build_chains(cfg, device="cuda"):
     """One (source, conditioner, conditioned_fs) per RF chain
     (gnss_flowgraph.cc instantiates source+conditioner per RF channel)."""
@@ -96,6 +83,22 @@ def _build_chains(cfg, device="cuda"):
             fs_out = cfg.property("GNSS-SDR.internal_fs_sps", fs_out)
         chains.append((source, conditioner, float(fs_out)))
     return chains
+
+
+def _load_blq(cfg):
+    """Optional ocean-loading table: PVT.blq_file + PVT.blq_station
+    (an extension over the reference's earth_tide knob, which compiles
+    rtklib's otl path but never feeds it a table)."""
+    path = cfg.property("PVT.blq_file", "")
+    if not path:
+        return None
+    from gnss_sdr_tpu_torch.pvt.tides import read_blq
+
+    station = cfg.property("PVT.blq_station", "")
+    table = read_blq(path, station)
+    if table is None:
+        raise ValueError(f"station {station!r} not found in {path}")
+    return table
 
 
 class _HostTracker:
@@ -132,7 +135,6 @@ def run_from_config(cfg, max_seconds: float | None = None,
     per-RF-channel sources). ``device`` holds the sample ring and runs the
     engines and the conditioner.
     """
-    _check_unported(cfg)
     chains = _build_chains(cfg, device)
     # assign chains to bands in canonical order of the bands the plans need
     probe_plans = get_signal_plans(
@@ -161,11 +163,75 @@ def run_from_config(cfg, max_seconds: float | None = None,
         positioning_mode=cfg.property("PVT.positioning_mode", "Single"),
         earth_tide=cfg.property("PVT.earth_tide", 0),
         phwindup=cfg.property("PVT.phwindup", False),
+        blq=_load_blq(cfg),
         device=device,
     )
     check_observables_impl(cfg)
     receiver = Receiver(rx_cfg, plans=plans)
     outputs = get_pvt_outputs(cfg)
+
+    # assistance warm start (reference read_assistance_from_XML,
+    # control_thread.cc:515): reload saved ephemerides/iono before the run
+    assist_xml = cfg.property("GNSS-SDR.assistance_xml", "")
+    if assist_xml:
+        import os
+
+        from gnss_sdr_tpu_torch.receiver.assistance import load_assistance
+
+        if os.path.exists(assist_xml):
+            data = load_assistance(assist_xml)
+            receiver.ephemerides.update(data["ephemerides"])
+            iu = data["iono_utc"]
+            if iu is not None and iu.has_iono:
+                from gnss_sdr_tpu_torch.pvt.atmosphere import KlobucharParams
+
+                receiver.iono = KlobucharParams(alpha=iu.alpha, beta=iu.beta)
+
+    # SUPL A-GNSS assistance (reference assist_GNSS,
+    # control_thread.cc:743-790: SET-initiated SUPL/RRLP session before
+    # the run; same GNSS-SDR.SUPL_* property names)
+    if cfg.property("GNSS-SDR.SUPL_gps_enabled", False):
+        from gnss_sdr_tpu_torch.receiver.supl import SuplClient, SuplConfig
+
+        supl_cfg = SuplConfig(
+            server=cfg.property("GNSS-SDR.SUPL_gps_ephemeris_server",
+                                "supl.google.com"),
+            port=cfg.property("GNSS-SDR.SUPL_gps_ephemeris_port", 7275),
+            mcc=cfg.property("GNSS-SDR.SUPL_MCC", 244),
+            mnc=cfg.property("GNSS-SDR.SUPL_MNC", 5),
+            lac=cfg.property("GNSS-SDR.SUPL_LAC", 0x59E2),
+            ci=cfg.property("GNSS-SDR.SUPL_CI", 0x31D2),
+            request=1,
+        )
+        try:
+            assist = SuplClient(supl_cfg).get_assistance()
+            receiver.ephemerides.update(assist["ephemerides"])
+            if assist["iono"] is not None:
+                receiver.iono = assist["iono"]
+            print(f"SUPL RRLP GPS assistance: "
+                  f"{len(assist['ephemerides'])} ephemerides received")
+        except Exception as e:       # network is best-effort, like the ref
+            print(f"SUPL assistance failed: {e}")
+
+    # telecommand server (reference TcpCmdInterface,
+    # tcp_cmd_interface.cc:49-62); its threads read only host state
+    tc_server = None
+    if cfg.property("GNSS-SDR.telecommand_enabled", False):
+        from gnss_sdr_tpu_torch.receiver.telecommand import TcpCmdServer
+
+        tc_server = TcpCmdServer(
+            receiver, port=cfg.property("GNSS-SDR.telecommand_tcp_port", 3333)
+        )
+
+    # IPC message-queue command channel (reference ControlThread spawns a
+    # sysv/boost message-queue listener, control_thread.cc:428-431): a
+    # named FIFO carrying the same line commands
+    fifo_reader = None
+    fifo_path = cfg.property("GNSS-SDR.command_fifo", "")
+    if fifo_path:
+        from gnss_sdr_tpu_torch.receiver.telecommand import FifoCmdReader
+
+        fifo_reader = FifoCmdReader(receiver, fifo_path)
 
     # periodic channel-status console table
     # (channel_status_msg_receiver analog)
@@ -239,11 +305,29 @@ def run_from_config(cfg, max_seconds: float | None = None,
                     receiver.acquire()
                 except ValueError:
                     pass  # not enough contiguous samples buffered yet
+        # queued commands, applied here on the main thread between blocks;
+        # a stop re-arms the first acquisition
+        for chan in (tc_server, fifo_reader):
+            if chan is not None:
+                cmds = chan.apply_pending()
+                if any(c in ("standby", "reset", "coldstart") for c in cmds):
+                    acq_done = False
         for sol in receiver.status.fixes[printed:]:
             outputs.print_position(sol)
         printed = len(receiver.status.fixes)
         if status_display is not None:
             status_display.tick(_status_view(receiver), stream_t())
+    if assist_xml:
+        from gnss_sdr_tpu_torch.receiver.assistance import save_assistance
+
+        save_assistance(
+            assist_xml, receiver.ephemerides,
+            iono_utc=receiver.status.iono_utc,
+        )
+    if tc_server is not None:
+        tc_server.close()
+    if fifo_reader is not None:
+        fifo_reader.close()
     receiver.close()
     outputs.close()
     return receiver.status

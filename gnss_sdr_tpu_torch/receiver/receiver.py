@@ -28,21 +28,28 @@ batched device engines:
   prompt signs, on pilot plans with the data component's symbols once the
   secondary code is locked;
 - observables: one shared ObservablesEngine anchored by telemetry TOWs;
-- PVT: solve_pvt at a fixed epoch cadence.
+- PVT: solve_pvt at a fixed epoch cadence, refined by the dual-frequency
+  PPP filter in the PPP positioning modes (with the solid, pole and ocean
+  tides and the phase windup) and smoothed by the PVT Kalman filter when
+  ``enable_pvt_kf`` is set; OSNMA (``osnma``) routes the I/NAV fields to
+  the TESLA engine, and its strict mode keeps only authenticated Galileo
+  satellites in the fix;
+- dumps: a plan's ``dump_filename`` and ``acq_dump_filename`` collect the
+  tracking outputs of every block and the acquisition rows of every
+  attempt, written as npz files by ``close``.
 
 The stream is buffered twice with absolute indexing: on the host for
 acquisition, and in a rolling device buffer (``io/device_stream.py``) that
 the trackers read in place.
 
 Everything runs on ``ReceiverConfig.device`` ("cuda" by default; without a
-card that raises unless "cpu" is asked for). Options the port does not
-carry yet raise ``NotImplementedError`` when switched on: multiple devices,
-OSNMA, PPP positioning, the PVT Kalman filter and dumps.
+card that raises unless "cpu" is asked for). Multiple devices are not
+carried yet: ``num_devices > 0`` is refused (ROADMAP queue item 14).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -58,12 +65,18 @@ from gnss_sdr_tpu_torch.acquisition import (
     TongAcquisition,
 )
 from gnss_sdr_tpu_torch.io.device_stream import DeviceStream
+from gnss_sdr_tpu_torch.monitor.dumps import AcquisitionDumper, TrackingDumper
 from gnss_sdr_tpu_torch.observables.engine import ObservablesEngine
 from gnss_sdr_tpu_torch.pvt.atmosphere import KlobucharParams
+from gnss_sdr_tpu_torch.pvt.coords import ecef_to_llh
 from gnss_sdr_tpu_torch.pvt.ephemeris import C_LIGHT
+from gnss_sdr_tpu_torch.pvt.kf import PvtKalmanFilter
+from gnss_sdr_tpu_torch.pvt.ppp import DualFreqObs, PppEngine
 from gnss_sdr_tpu_torch.pvt.solver import ObsEpoch, PvtSolution, solve_pvt
+from gnss_sdr_tpu_torch.receiver.osnma_rx import OsnmaManager
 from gnss_sdr_tpu_torch.receiver.plans import SignalPlan, gps_l1ca_plan
 from gnss_sdr_tpu_torch.tracking import ChannelPhase, Tracker
+from gnss_sdr_tpu_torch.tracking.tracker import BlockResult
 from gnss_sdr_tpu_torch.utils.log import get_logger
 
 log = get_logger(__name__)
@@ -92,8 +105,11 @@ class ReceiverConfig:
     carrier_smoothing_epochs: int = 400
     # model tropo always and iono once Klobuchar parameters arrive
     apply_atmosphere: bool = True
-    # not carried by this slice (raise when switched on)
+    # shard each group's channels over this many devices; not carried yet
+    # (raises when set, ROADMAP queue item 14); 0 = one device
     num_devices: int = 0
+    # position/velocity Kalman smoothing of the LS fixes (reference
+    # Pvt.enable_pvt_kf -> pvt_kf.cc)
     enable_pvt_kf: bool = False
     # upload stream chunks as int8 I/Q and widen on the device
     int8_stream: bool = False
@@ -102,26 +118,34 @@ class ReceiverConfig:
     rx_clock_correction_s: float = 1e-3
     # code periods per tracking call (one K1 launch on the card)
     steps_per_block: int = 20
-    # not carried by this slice (raise when switched on)
+    # OSNMA (Galileo navigation message authentication): route the I/NAV
+    # 40-bit fields to the TESLA engine and keep per-satellite auth state
+    # (reference osnma_msg_receiver.cc). `osnma_strict` restricts PVT to
+    # authenticated Galileo satellites (rtklib_pvt_gs.cc:1990-2075).
     osnma: bool = False
     osnma_public_key: object = None
     osnma_strict: bool = False
+    # positioning engine (reference PVT.positioning_mode): "Single" =
+    # iterated LS + RAIM; "PPP_Static"/"PPP_Kinematic" refine the LS fix
+    # with the dual-frequency iono-free float PPP filter (pvt/ppp.py)
+    # whenever the epoch carries >= 4 satellites observed on two bands
     positioning_mode: str = "Single"
+    # earth-tide site displacement for PPP modes (PVT.earth_tide: 0 off,
+    # 1 solid, 2 solid + pole + ocean loading when `blq` is given)
     earth_tide: int = 0
+    # (11, 6) BLQ ocean-loading table of the station (pvt.tides.read_blq)
     blq: object = None
+    # carrier phase windup correction for PPP modes (PVT.phwindup)
     phwindup: bool = False
     # the device that holds the sample ring and runs the engines
     device: str = "cuda"
 
 
 def _check_config(cfg: ReceiverConfig) -> None:
-    for on, what in ((cfg.num_devices > 0, "multiple devices"),
-                     (cfg.osnma, "OSNMA"),
-                     (cfg.positioning_mode != "Single",
-                      f"positioning mode {cfg.positioning_mode!r}"),
-                     (cfg.enable_pvt_kf, "the PVT Kalman filter")):
-        if on:
-            raise NotImplementedError(f"receiver: {what}")
+    if cfg.num_devices > 0:
+        raise NotImplementedError(
+            "receiver: multiple devices are not ported yet (ROADMAP queue "
+            "item 14)")
 
 
 @dataclass
@@ -131,6 +155,15 @@ class ReceiverStatus:
     subframes: int = 0
     acquired: dict = field(default_factory=dict)    # (sys, prn) -> (dop, delay)
     iono_utc: object = None                         # decoded GpsIonoUtc
+
+
+def _dump_result(result: BlockResult) -> BlockResult:
+    """``result`` with its int32 output leaves widened to int64, as the
+    JAX tracker's host unpacker gives them, so that a dump file has the
+    same dtypes from either package."""
+    outputs = {k: v.astype(np.int64) if v.dtype == np.int32 else v
+               for k, v in result.outputs.items()}
+    return replace(result, outputs=outputs)
 
 
 def _rows(prns: list[int], res) -> list[tuple]:
@@ -203,8 +236,6 @@ class SignalGroup:
 
     def __init__(self, plan: SignalPlan, chan_offset: int,
                  device: torch.device) -> None:
-        if plan.dump_filename or plan.acq_dump_filename:
-            raise NotImplementedError("receiver: dumps")
         self.plan = plan
         self.offset = chan_offset           # global channel index base
         self.acq = _acquisition_engine(plan, device)
@@ -221,6 +252,10 @@ class SignalGroup:
         self.channel_prn = [0] * plan.num_channels
         # sub-chip code phase by stamp for TOW anchoring
         self.recent_rem: dict[int, dict] = {}
+        self.dumper = (TrackingDumper(plan.dump_filename)
+                       if plan.dump_filename else None)
+        self.acq_dumper = (AcquisitionDumper(plan.acq_dump_filename)
+                           if plan.acq_dump_filename else None)
 
     def idle_channel(self) -> int | None:
         for i in range(self.plan.num_channels):
@@ -273,9 +308,22 @@ class Receiver:
         self.ephemerides: dict = {}          # (system, prn) -> ephemeris
         self.iono = KlobucharParams()
         self.status = ReceiverStatus()
+        self.pvt_kf = PvtKalmanFilter() if cfg.enable_pvt_kf else None
         self._next_epoch_t: float | None = None   # next obs epoch (stream s)
         self._last_pvt_tow: float = -1e9
         self._last_fix: PvtSolution | None = None
+        self.osnma = (OsnmaManager(public_key=cfg.osnma_public_key)
+                      if cfg.osnma else None)
+        self.ppp = None
+        if cfg.positioning_mode.startswith("PPP"):
+            self.ppp = PppEngine(
+                mode=("kinematic" if cfg.positioning_mode == "PPP_Kinematic"
+                      else "static"),
+                tide_correction=cfg.earth_tide > 0,
+                pole_tide=cfg.earth_tide >= 2,
+                oload=cfg.blq if cfg.earth_tide >= 2 else None,
+                phase_windup=cfg.phwindup,
+            )
 
         # per-band sample stream buffers (absolute indexing; one stream per
         # front-end band)
@@ -384,6 +432,8 @@ class Receiver:
             xb = np.broadcast_to(x, (len(prns_cold), n))
             res = g.acq.acquire(
                 xb, np.array([plan.prn_row(p) for p in prns_cold]))
+            if g.acq_dumper is not None:
+                g.acq_dumper.push(prns_cold, res)
             results += _rows(prns_cold, res)
         if prns_assist:
             assisted = self._assisted_engine(g, proj)
@@ -564,6 +614,8 @@ class Receiver:
         plan = g.plan
         conf = plan.trk_conf
         out = result.outputs
+        if g.dumper is not None:
+            g.dumper.push(_dump_result(result))
         for ch, ev in result.events:
             log.info("%s ch%d prn %d: %s", plan.name, ch,
                      g.channel_prn[ch], ev)
@@ -665,6 +717,9 @@ class Receiver:
                     wn = int(getattr(g.decoders[prn].eph, "week", 0) or 0)
                     g.tracker.set_tow_from_telemetry(
                         ch, ev["tow_s"] * 1000.0, wn, ev["sample_stamp"])
+                if self.osnma is not None and plan.system == "E":
+                    self.osnma.anchor(gch, ev["tow_s"], ev["sample_stamp"],
+                                      plan.trk_conf.fs)
                 if ev["ephemeris_complete"]:
                     if (plan.system, prn) not in self.ephemerides:
                         log.info("%s%02d: ephemeris complete",
@@ -680,6 +735,19 @@ class Receiver:
                              plan.system, prn)
                     self.ephemerides[(plan.system, prn)] = (
                         g.decoders[prn].reduced_ced.compute_eph())
+            # OSNMA: drain the decoder's per-page 40-bit fields into the
+            # TESLA engine once the ephemeris (the authenticated words and
+            # the GST week) is known (reference galileo_telemetry_decoder_gs
+            # -> osnma_msg_receiver routing)
+            if self.osnma is not None and plan.system == "E":
+                dec = g.decoders.get(prn)
+                eph = self.ephemerides.get(("E", prn))
+                if (dec is not None and eph is not None
+                        and getattr(dec, "osnma_fields", None)):
+                    fields = dec.osnma_fields
+                    dec.osnma_fields = []
+                    self.osnma.push_fields(
+                        gch, prn, getattr(eph, "week", None), eph, fields)
             # broadcast iono (LNAV SF4 page 18) feeds the solver's
             # Klobuchar model
             if events and plan.system == "G" and not self.iono.valid:
@@ -706,8 +774,10 @@ class Receiver:
             t_ep = self._next_epoch_t
             self._next_epoch_t += interval
             epoch_obs = self.obs.epoch_time(t_ep)
-            usable = [o for o in epoch_obs
-                      if (o.system, o.prn) in self.ephemerides]
+            usable = self._filter_osnma([
+                o for o in epoch_obs
+                if (o.system, o.prn) in self.ephemerides
+            ])
             t_rx = self.obs.rx_tow_at_time(t_ep)
             if len(usable) >= 4 and (
                 t_rx - self._last_pvt_tow >= cfg.pvt_interval_ms / 1000.0 - 1e-9
@@ -736,6 +806,8 @@ class Receiver:
                     x0=x0,
                     apply_atmosphere=self.cfg.apply_atmosphere,
                 )
+                if self.ppp is not None and sol.valid:
+                    self._refine_ppp(sol, usable, t_rx)
                 if sol.valid:
                     if not self.status.fixes:
                         log.info(
@@ -746,6 +818,13 @@ class Receiver:
                         )
                     if sol.raim_rejected:
                         log.warning("RAIM rejected: %s", sol.raim_rejected)
+                    if self.pvt_kf is not None:
+                        pos, vel = self.pvt_kf.update(
+                            t_rx, sol.pos_ecef, sol.vel_ecef)
+                        sol.pos_ecef = pos
+                        sol.vel_ecef = vel
+                        sol.lat_rad, sol.lon_rad, sol.height_m = (
+                            ecef_to_llh(pos))
                     self._last_fix = sol
                     self.status.fixes.append(sol)
                     if self.status.ttff_s is None:
@@ -759,8 +838,63 @@ class Receiver:
                         self.obs.apply_clock_correction(sol.clock_bias_s)
                         self._last_pvt_tow -= sol.clock_bias_s
 
+    def _refine_ppp(self, sol, usable: list, t_rx: float) -> None:
+        """PPP_Static/PPP_Kinematic positioning modes: refine the LS fix
+        with the dual-frequency iono-free float PPP filter when the epoch
+        observes >= 4 satellites on two bands (reference
+        PVT.positioning_mode PMODE_PPP_*, rtklib_ppp.cc pppos)."""
+        by_sat: dict = {}
+        for o in usable:
+            f = C_LIGHT / self.obs.ch[o.channel].wavelength_m
+            by_sat.setdefault((o.system, o.prn), []).append((f, o))
+        duals = []
+        for (sys_, prn), lst in by_sat.items():
+            if len(lst) < 2:
+                continue
+            lst.sort(key=lambda x: -x[0])
+            (f1, o1), (f2, o2) = lst[0], lst[-1]
+            if abs(f1 - f2) < 1e6 or not (
+                np.isfinite(o1.carrier_phase_cycles)
+                and np.isfinite(o2.carrier_phase_cycles)
+            ):
+                continue
+            duals.append(DualFreqObs(
+                system=sys_, prn=prn,
+                p1_m=o1.pseudorange_m, p2_m=o2.pseudorange_m,
+                phi1_cycles=o1.carrier_phase_cycles,
+                phi2_cycles=o2.carrier_phase_cycles,
+                f1_hz=f1, f2_hz=f2, cn0_dbhz=o1.cn0_dbhz,
+            ))
+        if len(duals) < 4:
+            return
+        if self.ppp.gps_week == 0:
+            for eph in self.ephemerides.values():
+                wk = int(getattr(eph, "week", 0) or 0)
+                if wk:
+                    self.ppp.gps_week = wk
+                    break
+        psol = self.ppp.process_epoch(
+            t_rx - sol.clock_bias_s, duals, self.ephemerides,
+            x0=sol.pos_ecef)
+        if psol.valid:
+            sol.pos_ecef = psol.pos_ecef
+            sol.lat_rad, sol.lon_rad, sol.height_m = ecef_to_llh(
+                psol.pos_ecef)
+
+    def _filter_osnma(self, usable: list) -> list:
+        """PVT strict mode: only OSNMA-authenticated Galileo satellites
+        contribute to the fix (rtklib_pvt_gs.cc:1990-2075)."""
+        if self.osnma is None or not self.cfg.osnma_strict:
+            return usable
+        return [o for o in usable
+                if o.system != "E" or self.osnma.authenticated(o.prn)]
+
     def close(self) -> None:
-        """End of run: nothing to flush in this slice (no dumps)."""
+        """Flush the dump files (end of run)."""
+        for g in self.groups:
+            for d in (g.dumper, g.acq_dumper):
+                if d is not None:
+                    d.close()
 
     # ------------------------------------------------- compat helper for CLI
     def _idle_channel(self) -> int | None:

@@ -41,7 +41,9 @@ COPIES = [
     "io/labsat.py",
     "io/net_sources.py",
     "io/sources.py",
+    "monitor/dumps.py",
     "monitor/status.py",
+    "monitor/synchro.py",
     "native/__init__.py",
     "observables/engine.py",
     "outputs/__init__.py",
@@ -54,12 +56,21 @@ COPIES = [
     "outputs/kml.py",
     "outputs/nmea.py",
     "outputs/rinex.py",
+    "pvt/antex.py",
     "pvt/atmosphere.py",
     "pvt/coords.py",
     "pvt/ephemeris.py",
     "pvt/glonass.py",
+    "pvt/kf.py",
+    "pvt/ppp.py",
     "pvt/sbas_corr.py",
     "pvt/solver.py",
+    "pvt/tides.py",
+    "receiver/agnss.py",
+    "receiver/assistance.py",
+    "receiver/osnma_rx.py",
+    "receiver/supl.py",
+    "receiver/telecommand.py",
     "simulate/beidou.py",
     "simulate/constellation.py",
     "simulate/galileo.py",

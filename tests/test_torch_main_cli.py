@@ -11,12 +11,17 @@ filter and resampler and the SignalGenerator source (against the JAX
 factory's), 0.4 s through both CLIs with conf/gps_l1_gaussian.conf's keys,
 the KF tracking and a Freq_Xlating_Fir_Filter, the plans its factory
 builds from conf/gps_l1_file.conf and conf/dual_band_gps_gal.conf (field
-by field against the JAX factory's) and the parts that raise
-``NotImplementedError``.
+by field against the JAX factory's) and each control-plane key (the
+assistance XML, SUPL, the telecommand server, the command FIFO, the BLQ
+table) on 0.5 s of the capture.
 """
 
 import argparse
 import dataclasses
+import os
+import socket
+import stat
+import time
 from pathlib import Path
 
 import numpy as np
@@ -436,17 +441,147 @@ def test_signal_generator_matches_jax():
     assert ts.exhausted() and js.exhausted()
 
 
+BLQ = """$$ Ocean loading displacement
+  WTZR
+$$ M2 S2 N2 K2 K1 O1 P1 Q1 MF MM SSA
+  .00325 .00112 .00069 .00031 .00117 .00087 .00039 .00017 .00009 .00005 .00004
+  .00103 .00036 .00023 .00010 .00026 .00013 .00009 .00003 .00002 .00001 .00001
+  .00049 .00017 .00011 .00005 .00052 .00039 .00017 .00008 .00003 .00002 .00001
+   -54.3  -27.9  -74.0  -25.5  -58.9  -96.0  -60.8 -131.0    6.1    3.4    1.9
+    72.5  105.1   52.1  106.5   43.0   27.0   41.7   17.9 -170.8 -176.3 -179.4
+    88.0  118.8   68.7  119.5  -27.4  -54.1  -29.0  -79.7    6.6    1.7    0.8
+"""
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _on_first_apply(monkeypatch, cls, action):
+    """Run ``action(channel)`` on the main thread at the first
+    ``apply_pending`` of ``cls`` (between blocks); returns every command
+    applied."""
+    applied = []
+    orig = cls.apply_pending
+
+    def apply_pending(self):
+        if not applied:
+            applied.append(action(self))
+        cmds = orig(self)
+        applied.extend(cmds)
+        return cmds
+
+    monkeypatch.setattr(cls, "apply_pending", apply_pending)
+    return applied
+
+
 @pytest.mark.parametrize("key,value", [
     ("GNSS-SDR.telecommand_enabled", "true"),
     ("GNSS-SDR.SUPL_gps_enabled", "true"),
     ("GNSS-SDR.assistance_xml", "gps_assistance.xml"),
     ("GNSS-SDR.command_fifo", "/tmp/gnss_fifo"),
     ("PVT.blq_file", "ocean.blq")])
-def test_unported_control_plane_raises(conf_file, key, value):
+def test_unported_control_plane_raises(conf_file, tmp_path, monkeypatch,
+                                       capsys, key, value):
+    """Each control-plane key (the name is from when they raised) runs
+    0.5 s of the capture through ``run_from_config(..., device="cpu")``
+    with the JAX CLI's effect: the telecommand server answers ``status``
+    during the run; SUPL against a closed port prints its failure and the
+    run goes on; the assistance XML warm-starts the receiver and is
+    written back at the end, loadable by the JAX package; the command
+    FIFO exists during the run and a ``standby`` written to it stops the
+    channels and re-acquires; the BLQ file gives the JAX CLI's (11, 6)
+    table."""
+    from gnss_sdr_tpu.receiver.assistance import (
+        load_assistance,
+        save_assistance,
+    )
+    from gnss_sdr_tpu.simulate.constellation import make_constellation
+    from gnss_sdr_tpu_torch.receiver import telecommand
+
     cfg = FileConfiguration(conf_file)
+    made = _capturing(monkeypatch, tmain)
+    path = tmp_path / Path(value).name
+    if key == "GNSS-SDR.telecommand_enabled":
+        cfg.set_property("GNSS-SDR.telecommand_tcp_port", _free_port())
+
+        def status(srv):
+            with socket.create_connection(("127.0.0.1", srv.port),
+                                          timeout=5) as c:
+                c.recv(128)
+                c.sendall(b"status\nexit\n")
+                reply = b""
+                while not reply.endswith(b"OK\r\n"):
+                    reply += c.recv(4096)
+            return reply.decode()
+
+        applied = _on_first_apply(monkeypatch, telecommand.TcpCmdServer,
+                                  status)
+    elif key == "GNSS-SDR.SUPL_gps_enabled":
+        cfg.set_property("GNSS-SDR.SUPL_gps_ephemeris_server", "127.0.0.1")
+        cfg.set_property("GNSS-SDR.SUPL_gps_ephemeris_port", _free_port())
+    elif key == "GNSS-SDR.assistance_xml":
+        ephs = make_constellation(seed=2)
+        save_assistance(path, {("G", p): e for p, e in ephs.items()})
+        value = str(path)
+    elif key == "GNSS-SDR.command_fifo":
+        value = str(path)
+
+        def standby(rd):
+            assert stat.S_ISFIFO(os.stat(rd.path).st_mode)
+            fd = os.open(rd.path, os.O_WRONLY)
+            os.write(fd, b"standby\n")
+            os.close(fd)
+            deadline = time.time() + 5.0
+            while rd.pending.empty() and time.time() < deadline:
+                time.sleep(0.01)
+            return "fifo"
+
+        applied = _on_first_apply(monkeypatch, telecommand.FifoCmdReader,
+                                  standby)
+        acquired = []
+        acquire = Receiver.acquire
+
+        def count(self, *a, **kw):
+            acquired.append(acquire(self, *a, **kw))
+            return acquired[-1]
+
+        monkeypatch.setattr(Receiver, "acquire", count)
+    else:
+        path.write_text(BLQ)
+        value = str(path)
+        cfg.set_property("PVT.blq_station", "WTZR")
+        cfg.set_property("PVT.positioning_mode", "PPP_Static")
+        cfg.set_property("PVT.earth_tide", 2)
     cfg.set_property(key, value)
-    with pytest.raises(NotImplementedError, match="queue item 16"):
-        tmain.run_from_config(cfg, device="cpu")
+    status = tmain.run_from_config(cfg, max_seconds=0.5, device="cpu")
+    rx = made[0]
+    out = capsys.readouterr().out
+    assert rx.status is status
+    if key == "GNSS-SDR.telecommand_enabled":
+        reply = applied[0]
+        assert reply.startswith("channel  signal")
+        assert reply.count(f"  {rx.groups[0].plan.name:>6}  ") == 5
+        assert "fix: none" in reply
+    elif key == "GNSS-SDR.SUPL_gps_enabled":
+        assert "SUPL assistance failed:" in out
+        assert rx.groups[0].active_channels()
+    elif key == "GNSS-SDR.assistance_xml":
+        assert {k for k in rx.ephemerides if k[0] == "G"} >= {
+            ("G", p) for p in ephs}
+        back = load_assistance(path)
+        assert set(back["ephemerides"]) == set(rx.ephemerides)
+    elif key == "GNSS-SDR.command_fifo":
+        assert applied[:2] == ["fifo", "standby"]
+        assert len(acquired) >= 2 and acquired[1]
+        assert not os.path.exists(path)
+    else:
+        want = jmain._load_blq(cfg)
+        assert rx.cfg.blq.shape == (11, 6)
+        np.testing.assert_array_equal(rx.cfg.blq, want)
+        assert rx.ppp is not None and rx.ppp.oload is rx.cfg.blq
 
 
 def test_main_needs_cuda_unless_asked(conf_file):

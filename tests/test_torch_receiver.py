@@ -88,12 +88,36 @@ def test_receiver_matches_jax_on_6s_capture():
 
 
 @pytest.mark.parametrize("kw", [{"num_devices": 2}, {"osnma": True},
-                                {"positioning_mode": "PPP_Static"},
+                                {"positioning_mode": "PPP_Static",
+                                 "earth_tide": 2, "phwindup": True},
                                 {"enable_pvt_kf": True}],
                          ids=["multi_device", "osnma", "ppp", "pvt_kf"])
 def test_unsupported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        Receiver(ReceiverConfig(device="cpu", **kw))
+    """Multiple devices raise, naming ROADMAP queue item 14. OSNMA, the
+    PPP positioning modes and the PVT Kalman filter are carried (the name
+    is from when they raised): both Receivers build the same engines for
+    them."""
+    if "num_devices" in kw:
+        with pytest.raises(NotImplementedError, match="queue item 14"):
+            Receiver(ReceiverConfig(device="cpu", **kw))
+        return
+    jrx = JReceiver(JConfig(**kw))
+    trx = Receiver(ReceiverConfig(device="cpu", **kw))
+    for name in ("osnma", "ppp", "pvt_kf"):
+        j, t = getattr(jrx, name), getattr(trx, name)
+        assert (t is None) == (j is None), name
+        assert t is None or type(t).__name__ == type(j).__name__, name
+    if "osnma" in kw:
+        assert trx.osnma.rx.public_key is None and not trx.osnma.auth_ok
+        assert not trx.osnma.rx.kroot_verified
+    if "positioning_mode" in kw:
+        for f in ("mode", "tide_correction", "pole_tide", "oload",
+                  "phase_windup", "gps_week"):
+            assert getattr(trx.ppp, f) == getattr(jrx.ppp, f), f
+        assert (trx.ppp.mode, trx.ppp.tide_correction,
+                trx.ppp.pole_tide) == ("static", True, True)
+    if "enable_pvt_kf" in kw:
+        assert vars(trx.pvt_kf).keys() == vars(jrx.pvt_kf).keys()
 
 
 @pytest.fixture(scope="module")
