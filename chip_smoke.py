@@ -58,7 +58,14 @@ through the CLI cold, with the assistance XML, the telecommand server
 queried by a client thread, SUPL against a closed port and the dumps,
 then warm from that XML with a ``reset`` through the command FIFO
 (gps8-ctl); and the port's front_end_cal, ttff and bench_micro tools.
-Each
+Then multi-device (phases 43-46) on the one card: the gps8 Tracker on two
+channel shards of cuda:0 against the unsharded Tracker, bit for bit,
+through K1 and under ``perchannel`` through K2; phase 6's 32 s run with
+``num_devices=1`` (the sharded code path) on phase 6's gates, and
+``num_devices`` past the card count refused; ``dryrun_multichip(1)``, whose
+two ``tools/dist_worker.py`` ranks (gloo, both on the card, K3 a period)
+gather the rows this process computes unsharded, bit for bit; and the
+scaling tool at 1, 2 and 4 shards. Each
 run is held to its test's gates, and each kernel it ran to its plain
 version on a block of the run's own inputs. The Galileo, dual-band,
 GLONASS, BeiDou and mc64 captures are made in 1 s chunks by worker
@@ -4494,6 +4501,274 @@ def tools_phase(ttff_pool, ttff_pending) -> dict:
     return dict(front_end_cal=fe, ttff=tt, bench_micro=rows)
 
 
+def start_acquired(trk, plan, res, prns: list) -> list:
+    """Start ``trk``'s channels on the strongest detections of ``res``
+    (PCPS over ``prns`` on the capture's first samples), one channel a
+    detection; returns the PRNs started."""
+    order = [i for i in np.argsort(-res.test_statistic) if res.detected[i]]
+    started = []
+    for ch, i in enumerate(order[:plan.num_channels]):
+        trk.start_channel(ch, prn=prns[i], code_row=plan.prn_row(prns[i]),
+                          acq_delay_samples=float(res.delay_samples[i]),
+                          acq_doppler_hz=float(res.doppler_hz[i]),
+                          acq_samplestamp=0, current_abs_sample=0)
+        started.append(prns[i])
+    return started
+
+
+def run_tracker(trk, capture: np.ndarray, blocks: int) -> tuple:
+    """``blocks`` blocks of ``trk`` over the capture from its window
+    requests; (BlockResults, wall s)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = []
+    for _ in range(blocks):
+        base, w = trk.window_request()
+        out.append(trk.process(capture[base:base + w], base))
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def assert_blocks_equal(run: str, a: list, b: list) -> None:
+    """Two runs' BlockResults bit for bit: every output, every absolute
+    sample stamp and every FSM event."""
+    for i, (x, y) in enumerate(zip(a, b, strict=True)):
+        for k, v in x.outputs.items():
+            if not np.array_equal(v, y.outputs[k]):
+                raise AssertionError(f"{run}: block {i} output {k} differs")
+        if not (np.array_equal(x.abs_sample_end, y.abs_sample_end)
+                and x.events == y.events):
+            raise AssertionError(f"{run}: block {i} stamps or events differ")
+
+
+def sharded_tracker_phase(capture, kernels) -> dict:
+    """Phase 43: the gps8 plan's Tracker on the mesh (cuda:0, cuda:0)
+    against the same Tracker unsharded, both started from one PCPS
+    acquisition on the gps8 capture's first samples, over 101 blocks
+    (2.02 s): every per-period output, sample stamp and FSM event
+    bit-equal (each channel's arithmetic is its own and each shard of 4
+    channels launches K1 with the unsharded launch's cluster size), K1
+    launched twice a block. One shard's K1 block is held to its plain
+    version (``track_blocked_shard2``). Then 3 blocks under
+    ``GNSS_SDR_TPU_FUSED=perchannel``: K2 twice a block, bit-equal to K2
+    unsharded, one shard's block held to its plain version
+    (``track_full_shard2``)."""
+    from gnss_sdr_tpu_torch.acquisition import PcpsAcquisition
+    from gnss_sdr_tpu_torch.ops import track_kernel as k2
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.parallel import make_channel_mesh
+    from gnss_sdr_tpu_torch.receiver.plans import gps_l1ca_plan
+    from gnss_sdr_tpu_torch.tracking.tracker import Tracker
+
+    plan = gps_l1ca_plan(FS, num_channels=8)
+    prns = list(plan.search_prns)
+    acq = PcpsAcquisition(plan.acq_conf, plan.code_table, prns,
+                          device="cuda")
+    n = plan.acq_conf.input_samples
+    res = acq.acquire(np.broadcast_to(capture[:n], (len(prns), n)),
+                      np.array([plan.prn_row(p) for p in prns]))
+    mesh = make_channel_mesh(["cuda:0", "cuda:0"])
+    blocks = 101
+
+    def tracker(sharded: bool):
+        trk = Tracker(plan.trk_conf, plan.code_table, device="cuda",
+                      mesh=mesh if sharded else None)
+        return trk, start_acquired(trk, plan, res, prns)
+
+    trk1, started = tracker(False)
+    if len(started) < 4:
+        raise AssertionError(f"sharded tracker: {len(started)} detections")
+    k1.track_blocked.launches = 0
+    ref, wall1 = run_tracker(trk1, capture, blocks)
+    n_ref = k1.track_blocked.launches
+    trk2, _ = tracker(True)
+    k1.track_blocked.launches = 0
+    with record_blocks() as rec:
+        got, wall2 = run_tracker(trk2, capture, blocks)
+    n_sh = k1.track_blocked.launches
+    if not (n_ref == blocks and n_sh == 2 * blocks):
+        raise AssertionError(f"sharded tracker: K1 launches {n_ref} "
+                             f"unsharded, {n_sh} sharded, {blocks} blocks")
+    assert_blocks_equal("sharded tracker (K1)", ref, got)
+    locked = len(trk2.active_channels())
+    hold_fused_block("gps8_shard2", "track_blocked", rec["track_blocked"],
+                     kernels, "track_blocked_shard2")
+    kernels["track_blocked_shard2"]["launches"] = n_sh
+
+    with fused_engine("perchannel"):
+        trk3, _ = tracker(False)
+        trk4, _ = tracker(True)
+    k2.track_full.launches = 0
+    ref2, _ = run_tracker(trk3, capture, 3)
+    k2.track_full.launches = 0
+    with record_blocks() as rec2:
+        got2, _ = run_tracker(trk4, capture, 3)
+    n_k2 = k2.track_full.launches
+    if n_k2 != 6:
+        raise AssertionError(f"sharded tracker: {n_k2} K2 launches, want 6")
+    assert_blocks_equal("sharded tracker (K2)", ref2, got2)
+    hold_fused_block("gps8_shard2_perchannel", "track_full",
+                     rec2["track_full"], kernels, "track_full_shard2")
+    kernels["track_full_shard2"]["launches"] = n_k2
+    e = dict(mesh=[str(d) for d in mesh.devices], prns=started,
+             blocks=blocks, signal_s=blocks * 0.02, locked=locked,
+             k1_launches_unsharded=n_ref, k1_launches_sharded=n_sh,
+             k2_launches_sharded=n_k2, bit_equal=True,
+             wall_unsharded_s=wall1, wall_sharded_s=wall2,
+             ms_per_block_unsharded=wall1 * 1e3 / blocks,
+             ms_per_block_sharded=wall2 * 1e3 / blocks)
+    emit("sharded_tracker_gps8", **e)
+    return e
+
+
+def sharded_receiver_phase(drive, capture, scen, phase6: dict,
+                           kernels) -> dict:
+    """Phase 44: phase 6's 32 s gps8 run with ``num_devices=1``: the
+    Receiver's one-shard mesh on cuda:0 goes to the Tracker, PCPS and the
+    assisted engine (a shard on the Tracker's own card runs the engine on
+    the whole state, with nothing split or gathered), held
+    to phase 6's gates (mean 2D < 2 m, 3D < 5 m), its realtime factor
+    beside phase 6's from this call; K1 once a block, held to its plain
+    version on a block of the run (``track_blocked_sharded_rx``). Then
+    ``num_devices`` one past the card count raises RuntimeError."""
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+
+    k1.track_blocked.launches = 0
+    with record_blocks() as rec:
+        rx, blocks, wall = drive(ReceiverConfig(fs=FS, num_channels=8,
+                                                num_devices=1), capture)
+    n1 = k1.track_blocked.launches
+    if not (rx.mesh is not None and rx.mesh.size == 1
+            and rx.tracker.mesh is rx.mesh
+            and rx.groups[0].acq.mesh is rx.mesh):
+        raise AssertionError("num_devices=1 did not take the sharded path")
+    if not (blocks > 0 and n1 == blocks):
+        raise AssertionError(f"{n1} K1 launches for {blocks} blocks")
+    e = dict(position_gates(rx.status, scen), mesh=[str(d) for d in
+                                                    rx.mesh.devices],
+             locked=len(rx.tracker.active_channels()), blocks=blocks,
+             k1_launches=n1, wall_s=wall, realtime_factor=32.0 / wall,
+             phase6_realtime_factor=phase6["realtime_factor"],
+             phase6_mean_2d_m=phase6["mean_2d_m"])
+    hold_fused_block("gps8_num_devices_1", "track_blocked",
+                     rec["track_blocked"], kernels,
+                     "track_blocked_sharded_rx")
+    kernels["track_blocked_sharded_rx"]["launches"] = n1
+    too_many = torch.cuda.device_count() + 1
+    try:
+        Receiver(ReceiverConfig(fs=FS, num_channels=8 * too_many,
+                                num_devices=too_many))
+    except RuntimeError as err:
+        e["beyond_cards"] = str(err)
+    else:
+        raise AssertionError(f"num_devices={too_many} did not raise")
+    emit("e2e_gps8_32s_num_devices_1", **e)
+    return e
+
+
+def distributed_phase(kernels) -> dict:
+    """Phase 45: ``parallel.dryrun.dryrun_multichip(1)`` on the card: three
+    blocks of the tiny tracker on a one-card mesh (K1), a sharded PCPS over
+    32 PRNs, and two ``tools/dist_worker.py`` ranks (gloo, both on cuda:0,
+    4 shards of one channel each, the eager engine: K3 each period of each
+    shard) gathering the [4, 8] Doppler rows to rank 0. The gathered rows
+    equal this process's unsharded eager rows on the card bit for bit, and
+    the CPU eager engine's (K3's plain version) within
+    tests/test_torch_dll_pll.py's 0.1 Hz. K3 at the ranks' shape (C = 1)
+    is held to its plain version on a period of the same run made in this
+    process over 8 one-channel shards (``correlator_dist``, launches: the
+    ranks' own counts). The dry run's in-process K1 blocks (C = 2, three
+    on the one-card mesh) are counted and one is held to its plain
+    version (``track_blocked_dryrun``)."""
+    from gnss_sdr_tpu_torch.parallel.distributed import (
+        dryrun_conf,
+        dryrun_inputs,
+        run_blocks,
+    )
+    from gnss_sdr_tpu_torch.parallel.dryrun import dryrun_multichip
+    from gnss_sdr_tpu_torch.parallel.sharding import (
+        make_channel_mesh,
+        make_sharded_track_block,
+    )
+    from gnss_sdr_tpu_torch.tracking.dll_pll import track_block
+
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+
+    t = time.perf_counter()
+    k1.track_blocked.launches = 0
+    with record_blocks() as rec_dry:
+        run = dryrun_multichip(1)
+    n_dry = k1.track_blocked.launches
+    dry_s = time.perf_counter() - t
+    rows, launches = run["dist"]["rows"], run["dist"]["launches"]
+    conf = dryrun_conf(8)
+
+    def rows_on(dev, fn=None):
+        state, window, codes = dryrun_inputs(conf, dev)
+        eng = fn or (lambda s, w, c: track_block(conf, s, w, c))
+        return run_blocks(eng, state, window, codes, 3).cpu().numpy()
+
+    card, cpu = rows_on("cuda"), rows_on("cpu")
+    with record_blocks() as rec:
+        shards = rows_on("cuda", make_sharded_track_block(
+            dataclasses.replace(conf, fused_tracker=False),
+            make_channel_mesh(["cuda:0"] * 8)))
+    want = [4 * conf.steps_per_block * 3] * 2
+    e = dict(rows_shape=list(rows.shape), k3_launches_per_rank=launches,
+             in_process_fused=run["fused"], in_process_k1_launches=n_dry,
+             max_abs_vs_cpu_hz=float(np.abs(rows - cpu).max()),
+             bit_equal_card=bool(np.array_equal(rows, card)),
+             bit_equal_8_shards=bool(np.array_equal(rows, shards)),
+             dryrun_s=dry_s)
+    emit("distributed_two_ranks", **e)
+    if not (rows.shape == (conf.steps_per_block, 8) and launches == want
+            and run["fused"] and n_dry == 3 and e["bit_equal_card"]
+            and e["bit_equal_8_shards"] and e["max_abs_vs_cpu_hz"] < 0.1):
+        raise AssertionError(f"distributed gates failed: {e}")
+    hold_correlator_block("dist_rank_shard", rec["correlator"], kernels,
+                          "correlator_dist")
+    kernels["correlator_dist"]["launches"] = sum(launches)
+    hold_fused_block("dryrun_multichip_1", "track_blocked",
+                     rec_dry["track_blocked"], kernels,
+                     "track_blocked_dryrun")
+    kernels["track_blocked_dryrun"]["launches"] = n_dry
+    return e
+
+
+def scaling_phase(kernels) -> dict:
+    """Phase 46: ``tools/scaling.py`` at 1, 2 and 4 shards, all on cuda:0
+    (``--cards 1``; 32 channels, 20 periods a block, 10 timed blocks after
+    one warm-up): ms per block and the ratio to one shard, the shards'
+    overhead on one card, not scaling. Each shard count runs the tool
+    once, launching K1 once per shard and block at C = 32, 16 and 8 (each
+    its own cluster shape); one block of each is held to its plain
+    version (``track_blocked_scaling{1,2,4}``)."""
+    from gnss_sdr_tpu_torch.ops import track_kernel_blocked as k1
+    from gnss_sdr_tpu_torch.tools import scaling
+
+    times, launches = {}, {}
+    for n in (1, 2, 4):
+        k1.track_blocked.launches = 0
+        with record_blocks() as rec:
+            times.update(scaling.main(["--shards", str(n), "--cards", "1"]))
+        launches[n] = k1.track_blocked.launches
+        name = f"track_blocked_scaling{n}"
+        hold_fused_block(f"scaling_{n}_shards", "track_blocked",
+                         rec["track_blocked"], kernels, name)
+        kernels[name]["launches"] = launches[n]
+    e = dict(ms_per_block={n: t * 1e3 for n, t in times.items()},
+             ratio={n: t / times[1] for n, t in times.items()},
+             k1_launches=launches,
+             k1_block_ms={n: kernels[f"track_blocked_scaling{n}"]["ms"]
+                          for n in times})
+    emit("scaling_one_card", **e)
+    if not (sorted(times) == [1, 2, 4]
+            and all(launches[n] == 11 * n for n in launches)):
+        raise AssertionError(f"scaling gates failed: {e}")
+    return e
+
+
 def ttff_trial(args) -> tuple:
     """One ``tools/ttff.py`` trial of seed 1 on the card in a worker
     process: (warm, duration s) -> (TTFF s or None, K1 launches, wall s)."""
@@ -4799,7 +5074,19 @@ def main() -> int:
     # ---- 42. the tools: front_end_cal, ttff, bench_micro -----------------
     tools_phase(ttff_pool, ttff_pending)
 
-    # ---- 43. kernels -----------------------------------------------------
+    # ---- 43. the gps8 Tracker on two shards of cuda:0 (K1, K2) ------------
+    sharded_tracker_phase(capture, kernels)
+
+    # ---- 44. gps8's 32 s run with num_devices=1 (K1) ---------------------
+    sharded_receiver_phase(drive, capture, scen, e2e, kernels)
+
+    # ---- 45. the two-process run on the card (gloo, K3) ------------------
+    distributed_phase(kernels)
+
+    # ---- 46. the scaling tool on one card (K1) ---------------------------
+    scaling_phase(kernels)
+
+    # ---- 47. kernels -----------------------------------------------------
     meta = {
         "track_blocked": dict(
             route="cuda", source="gnss_sdr_tpu_torch/csrc/track_blocked.cu",
@@ -4835,6 +5122,11 @@ def main() -> int:
     meta["track_full_bds"] = meta["track_full"]
     meta["correlator_bds"] = meta["correlator"]
     meta["correlator_kf"] = meta["correlator"]
+    for case in ("shard2", "sharded_rx", "dryrun", "scaling1", "scaling2",
+                 "scaling4"):
+        meta[f"track_blocked_{case}"] = meta["track_blocked"]
+    meta["track_full_shard2"] = meta["track_full"]
+    meta["correlator_dist"] = meta["correlator"]
     for n in meta:
         if not kernels[n].get("launches"):
             raise AssertionError(f"{n}: no launch on its path")

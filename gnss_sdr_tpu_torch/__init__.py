@@ -18,7 +18,10 @@ one-period correlator (K3, ``ops/correlator.py``). The kernel-bench tools
 (``tools/kbench.py``, ``tools/mosaic_probe.py``) add the simple fused
 tracker (K4, ``ops/track_kernel.py``) and the primitive-cost probe (P1).
 Each kernel has a plain PyTorch version beside it, which the wrappers use
-only for tensors that lie on the CPU.
+only for tensors that lie on the CPU. A group's channels shard over
+several devices (``parallel/``: ``ReceiverConfig.num_devices``, the
+``mesh`` of ``Tracker`` and of the PCPS engines, a two-process run over
+``torch.distributed``).
 
 Device policy: entry points take a ``device`` and default to ``"cuda"``.
 Without CUDA they raise unless the caller asked for ``"cpu"``; there is no
@@ -45,4 +48,13 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def canonical_device(device) -> torch.device:
+    """``device`` with its CUDA index filled in ("cuda" -> "cuda:<current
+    device>"), so that two names of one device compare equal."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
     return dev

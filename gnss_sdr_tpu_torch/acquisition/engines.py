@@ -26,6 +26,9 @@ complex64 ``torch.fft`` on the engine's device, chunked over Doppler as
 PCPS is (``AcqConfig.doppler_chunk``), with one copy of the per-channel
 results to the host per ``acquire``. Every engine takes a ``device``
 ("cuda" by default; without a card that raises unless "cpu" is asked for).
+The three PCPS schedulers also take a ``mesh`` (a
+``parallel.sharding.ChannelMesh``) and shard the hypothesis batch over it
+as PCPS does; the three grid engines take none, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -147,23 +150,27 @@ class FineDopplerAcquisition:
     def __init__(self, conf: AcqConfig, code_table: np.ndarray,
                  prns: list[int], iterations: int = 4,
                  freq_offset_table: np.ndarray | None = None, *,
-                 device: str | torch.device = "cuda") -> None:
+                 mesh=None, device: str | torch.device = "cuda") -> None:
         self.iterations = iterations
         self.inner = PcpsAcquisition(
             replace(conf, make_two_steps=False), code_table, prns,
-            freq_offset_table=freq_offset_table, device=device)
+            freq_offset_table=freq_offset_table, mesh=mesh, device=device)
         self.conf = self.inner.conf
         self.prns = self.inner.prns
         self.threshold = self.inner.threshold
 
-    def acquire(self, x, prn_idx) -> AcqResults:
-        inner, conf = self.inner, self.inner.conf
-        xt, pt = _inputs(x, prn_idx, None, inner.device)
-        val, dop, lag, power = inner._acquire(xt, pt)
-        step = conf.doppler_step_hz
+    def _zoom(self, eng: PcpsAcquisition, xt: torch.Tensor,
+              pt: torch.Tensor) -> tuple:
+        val, dop, lag, power = eng._acquire(xt, pt)
+        step = eng.conf.doppler_step_hz
         for _ in range(self.iterations):
             step *= 0.5
-            val, dop, lag = inner._refine(xt, pt, dop, step2_hz=step)
+            val, dop, lag = eng._refine(xt, pt, dop, step2_hz=step)
+        return val, dop, lag, power
+
+    def acquire(self, x, prn_idx) -> AcqResults:
+        conf = self.inner.conf
+        val, dop, lag, power = self.inner.map_shards(self._zoom, x, prn_idx)
         return _results(val, dop, lag, power,
                         conf.coherent_samples * conf.max_dwells,
                         self.threshold)
@@ -183,14 +190,14 @@ class TongAcquisition:
                  prns: list[int], tong_init: int = 1, tong_max: int = 8,
                  max_attempts: int | None = None,
                  freq_offset_table: np.ndarray | None = None, *,
-                 device: str | torch.device = "cuda") -> None:
+                 mesh=None, device: str | torch.device = "cuda") -> None:
         self.tong_init = tong_init
         self.tong_max = tong_max
         self.max_attempts = max_attempts or (4 * tong_max)
         inner_conf = replace(conf, max_dwells=1)
         self.inner = PcpsAcquisition(inner_conf, code_table, prns,
                                      freq_offset_table=freq_offset_table,
-                                     device=device)
+                                     mesh=mesh, device=device)
         self.prns = self.inner.prns
         # per-dwell threshold at a relaxed pfa: each H0 dwell must be likely
         # to decrement (pfa_dwell ~ 0.1 keeps E[K] drifting to 0 fast while
@@ -397,13 +404,13 @@ class AssistedAcquisition:
 
     def __init__(self, conf: AcqConfig, code_table: np.ndarray,
                  prns: list[int], predicted_doppler_hz: dict[int, float],
-                 window_hz: float = 500.0, *,
+                 window_hz: float = 500.0, *, mesh=None,
                  device: str | torch.device = "cuda") -> None:
         offsets = np.array(
             [predicted_doppler_hz.get(p, 0.0) for p in prns], np.float64)
         narrow = replace(conf, doppler_max_hz=window_hz, doppler_min_hz=None)
         self.inner = PcpsAcquisition(narrow, code_table, prns,
-                                     freq_offset_table=offsets,
+                                     freq_offset_table=offsets, mesh=mesh,
                                      device=device)
         self.conf = self.inner.conf
         self.prns = self.inner.prns

@@ -16,17 +16,26 @@ Doppler refinement and a per-row frequency-offset table (row p searches
 offset[p] + the Doppler grid; the reported Doppler excludes the offset).
 The offsets are a device tensor that ``set_offsets`` rewrites in place
 between calls, as the assisted engine (``acquisition/engines.py``) does.
+
+With a ``mesh`` (``parallel.sharding.ChannelMesh``) the hypothesis batch
+splits over the shards: it is padded by repeating its last row to a
+multiple of the mesh size, each shard runs its contiguous rows through
+``torch.fft`` on its own device, and the results are concatenated on the
+engine's device (the surplus rows dropped) before they go to the host.
+The code FFTs, the Doppler grid and the offsets are held once per
+distinct shard device.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from gnss_sdr_tpu_torch import resolve_device
+from gnss_sdr_tpu_torch import canonical_device, resolve_device
 from gnss_sdr_tpu_torch.codes.resample import resample_code
 
 
@@ -144,9 +153,11 @@ class PcpsAcquisition:
         prns: list[int],          # PRN id per table row (for reporting)
         *,
         freq_offset_table: np.ndarray | None = None,
+        mesh=None,
         device: str | torch.device = "cuda",
     ) -> None:
         self.device = resolve_device(device)
+        self.mesh = mesh
         # per-row carrier offsets (Hz, float32 as the JAX grid holds them)
         self._offsets = (
             None if freq_offset_table is None
@@ -198,12 +209,56 @@ class PcpsAcquisition:
             self.threshold = r
         else:
             self.threshold = threshold_from_pfa(conf, nb)
+        # one engine per shard, sharing the tables of each distinct device
+        self._shards = None
+        if mesh is not None:
+            on = {}
+            for dev in mesh.distinct():
+                on[dev] = (self if dev == canonical_device(self.device)
+                           else self._on_device(dev))
+            self._shards = [on[d] for d in mesh.devices]
+
+    def _on_device(self, dev: torch.device) -> PcpsAcquisition:
+        """This engine with its device tables copied to ``dev``."""
+        eng = copy.copy(self)
+        eng.device, eng.mesh, eng._shards = dev, None, None
+        for name in ("_codes_fft_conj", "_dop", "_n", "_offsets"):
+            t = getattr(self, name)
+            setattr(eng, name, None if t is None else t.to(dev))
+        return eng
 
     def set_offsets(self, offsets_hz) -> None:
         """Rewrite the per-row offset table in place (same shape), so the
         next call searches around the new offsets with nothing rebuilt."""
-        self._offsets.copy_(torch.as_tensor(
-            np.asarray(offsets_hz, dtype=np.float32)))
+        src = torch.as_tensor(np.asarray(offsets_hz, dtype=np.float32))
+        for eng in {self, *(self._shards or ())}:
+            eng._offsets.copy_(src)
+
+    def map_shards(self, fn, x, prn_idx) -> tuple:
+        """``fn(engine, x, rows)`` on the hypothesis batch (host samples
+        [C, N] and table rows [C]) as device tensors; returns its tuple of
+        [C] tensors on this engine's device. With a mesh, each shard's
+        engine takes its rows of the padded batch on its own device."""
+        x = np.asarray(x, dtype=np.complex64)
+        prn_idx = np.asarray(prn_idx, dtype=np.int64)
+        n_real = x.shape[0]
+        if self._shards is None or n_real == 0:
+            return fn(self,
+                      torch.as_tensor(np.ascontiguousarray(x),
+                                      device=self.device),
+                      torch.as_tensor(prn_idx, device=self.device))
+        pad = (-n_real) % self.mesh.size
+        if pad:
+            x = np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
+            prn_idx = np.concatenate([prn_idx, np.repeat(prn_idx[-1:], pad)])
+        parts = [fn(eng,
+                    torch.as_tensor(np.ascontiguousarray(x[a:b]),
+                                    device=eng.device),
+                    torch.as_tensor(prn_idx[a:b], device=eng.device))
+                 for (a, b), eng in zip(self.mesh.ranges(len(x)),
+                                        self._shards)]
+        return tuple(torch.cat([p[i].to(self.device) for p in parts])[:n_real]
+                     for i in range(len(parts[0])))
 
     def _row_offsets(self, prn_idx: torch.Tensor) -> torch.Tensor | None:
         return None if self._offsets is None else self._offsets[prn_idx]
@@ -297,14 +352,9 @@ class PcpsAcquisition:
         return val, (dop if off is None else dop - off), idx % spc
 
     # ------------------------------------------------------------------- API
-    def acquire(self, x, prn_idx) -> AcqResults:
-        """Run acquisition. x: [C, input_samples] c64; prn_idx: [C] into
-        the table."""
+    def _detect(self, xt: torch.Tensor, pt: torch.Tensor) -> tuple:
+        """(statistic, Doppler, code delay, input power) per row."""
         conf = self.conf
-        xt = torch.as_tensor(np.ascontiguousarray(x, dtype=np.complex64),
-                             device=self.device)
-        pt = torch.as_tensor(np.asarray(prn_idx, dtype=np.int64),
-                             device=self.device)
         val, dop, lag, power = self._acquire(xt, pt)
         if conf.make_two_steps:
             val, dop, lag = self._refine(xt, pt, dop)
@@ -315,6 +365,13 @@ class PcpsAcquisition:
             # normalised CFAR statistic: peak / (sigma^2 * N_coh * K)
             norm = power.double() * conf.coherent_samples * conf.max_dwells
             stat = val.double() / norm.clamp_min(1e-30)
+        return stat, dop, lag, power
+
+    def acquire(self, x, prn_idx) -> AcqResults:
+        """Run acquisition. x: [C, input_samples] c64; prn_idx: [C] into
+        the table."""
+        stat, dop, lag, power = self.map_shards(PcpsAcquisition._detect, x,
+                                                prn_idx)
         stat = stat.cpu().numpy()
         return AcqResults(
             detected=stat > self.threshold,

@@ -43,8 +43,14 @@ acquisition, and in a rolling device buffer (``io/device_stream.py``) that
 the trackers read in place.
 
 Everything runs on ``ReceiverConfig.device`` ("cuda" by default; without a
-card that raises unless "cpu" is asked for). Multiple devices are not
-carried yet: ``num_devices > 0`` is refused (ROADMAP queue item 14).
+card that raises unless "cpu" is asked for). ``num_devices = n > 0``
+shards every group's channels, and the hypothesis batches of its PCPS,
+fine-Doppler, Tong and assisted engines, over a mesh of n devices
+(``parallel/sharding.py``): ``cuda:0`` to ``cuda:n-1`` on the card, which
+raises ``RuntimeError`` when fewer cards are present (the JAX receiver
+takes ``jax.devices()[:n]`` and so shrinks its mesh without a word), or n
+shards on the CPU. The state, the sample ring and the host work stay on
+``device``.
 """
 
 from __future__ import annotations
@@ -67,6 +73,7 @@ from gnss_sdr_tpu_torch.acquisition import (
 from gnss_sdr_tpu_torch.io.device_stream import DeviceStream
 from gnss_sdr_tpu_torch.monitor.dumps import AcquisitionDumper, TrackingDumper
 from gnss_sdr_tpu_torch.observables.engine import ObservablesEngine
+from gnss_sdr_tpu_torch.parallel.sharding import device_mesh
 from gnss_sdr_tpu_torch.pvt.atmosphere import KlobucharParams
 from gnss_sdr_tpu_torch.pvt.coords import ecef_to_llh
 from gnss_sdr_tpu_torch.pvt.ephemeris import C_LIGHT
@@ -105,8 +112,8 @@ class ReceiverConfig:
     carrier_smoothing_epochs: int = 400
     # model tropo always and iono once Klobuchar parameters arrive
     apply_atmosphere: bool = True
-    # shard each group's channels over this many devices; not carried yet
-    # (raises when set, ROADMAP queue item 14); 0 = one device
+    # shard each group's channels over this many devices (a channel mesh,
+    # parallel/sharding.py); 0 = one device, unsharded
     num_devices: int = 0
     # position/velocity Kalman smoothing of the LS fixes (reference
     # Pvt.enable_pvt_kf -> pvt_kf.cc)
@@ -141,13 +148,6 @@ class ReceiverConfig:
     device: str = "cuda"
 
 
-def _check_config(cfg: ReceiverConfig) -> None:
-    if cfg.num_devices > 0:
-        raise NotImplementedError(
-            "receiver: multiple devices are not ported yet (ROADMAP queue "
-            "item 14)")
-
-
 @dataclass
 class ReceiverStatus:
     fixes: list = field(default_factory=list)       # PvtSolution list
@@ -173,9 +173,9 @@ def _rows(prns: list[int], res) -> list[tuple]:
             for i, p in enumerate(prns)]
 
 
-def _acquisition_engine(plan: SignalPlan, device: torch.device):
+def _acquisition_engine(plan: SignalPlan, device: torch.device, mesh=None):
     """The plan's batched acquisition engine (``plan.acq_engine``), built
-    as the JAX receiver builds it."""
+    as the JAX receiver builds it (the mesh only for the PCPS engines)."""
     acq_table = (plan.acq_code_table if plan.acq_code_table is not None
                  else plan.code_table)
     prns = list(plan.search_prns)
@@ -184,13 +184,13 @@ def _acquisition_engine(plan: SignalPlan, device: torch.device):
     if engine == "pcps":
         return PcpsAcquisition(plan.acq_conf, acq_table, prns,
                                freq_offset_table=plan.freq_offset_table,
-                               device=device)
+                               mesh=mesh, device=device)
     if engine in ("fine_doppler", "tong"):
         cls = (FineDopplerAcquisition if engine == "fine_doppler"
                else TongAcquisition)
         return cls(plan.acq_conf, acq_table, prns,
-                   freq_offset_table=plan.freq_offset_table, device=device,
-                   **params)
+                   freq_offset_table=plan.freq_offset_table, mesh=mesh,
+                   device=device, **params)
     if engine == "quicksync":
         return QuickSyncAcquisition(plan.acq_conf, acq_table, prns,
                                     device=device, **params)
@@ -235,15 +235,15 @@ class SignalGroup:
     """One signal type's engines + per-channel decode state."""
 
     def __init__(self, plan: SignalPlan, chan_offset: int,
-                 device: torch.device) -> None:
+                 device: torch.device, mesh=None) -> None:
         self.plan = plan
         self.offset = chan_offset           # global channel index base
-        self.acq = _acquisition_engine(plan, device)
+        self.acq = _acquisition_engine(plan, device, mesh)
         self.tracker = Tracker(
             plan.trk_conf, plan.code_table,
             data_code_table=plan.data_code_table,
             sec_pilot_table=plan.sec_pilot_table,
-            sec_data_levels=plan.sec_data_levels, device=device)
+            sec_data_levels=plan.sec_data_levels, device=device, mesh=mesh)
         self.loop_closer = _loop_closer(plan, device)
         # narrow engine for satellites tracked on another band, built on
         # first use (Receiver._assisted_engine)
@@ -270,7 +270,6 @@ class SignalGroup:
 class Receiver:
     def __init__(self, cfg: ReceiverConfig,
                  plans: list[SignalPlan] | None = None) -> None:
-        _check_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         if plans is None:
@@ -292,10 +291,12 @@ class Receiver:
                 search_prns=cfg.search_prns,
                 steps_per_block=cfg.steps_per_block,
             )]
+        self.mesh = (device_mesh(cfg.num_devices, self.device)
+                     if cfg.num_devices > 0 else None)
         self.groups: list[SignalGroup] = []
         off = 0
         for plan in plans:
-            self.groups.append(SignalGroup(plan, off, self.device))
+            self.groups.append(SignalGroup(plan, off, self.device, self.mesh))
             off += plan.num_channels
         self.total_channels = off
 
@@ -536,7 +537,7 @@ class Receiver:
             g.assisted_acq = AssistedAcquisition(
                 plan.acq_conf, table, row_prns,
                 {p: 0.0 for p in row_prns}, window_hz=500.0,
-                device=self.device)
+                mesh=self.mesh, device=self.device)
         assisted = g.assisted_acq
         offsets = np.zeros(len(assisted._offsets_np), np.float64)
         for p, d in proj.items():

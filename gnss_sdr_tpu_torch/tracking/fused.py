@@ -160,11 +160,26 @@ def fused_track_block(
 ) -> tuple[TrackingState, dict]:
     """One fused block: the same contract as ``dll_pll.track_block``, with
     the K-period loop inside a single launch of the spec's kernel."""
+    rows = launch_fused(spec, window, codes, _pack_scalars(conf, state),
+                        state.pos, data_codes, sec_pilot, sec_data)
+    return unpack_rows(conf, state, rows)
+
+
+def launch_fused(spec: BlockedSpec, window: torch.Tensor,
+                 codes: torch.Tensor, scalars: torch.Tensor,
+                 pos: torch.Tensor, *tables) -> torch.Tensor:
+    """The spec's kernel (K1, or K2 for ``spec.kernel == "track_full"``)
+    on one packed block: the [C, K, 128] rows."""
+    run = track_full if spec.kernel == "track_full" else track_blocked
+    return run(window, codes, scalars, pos, spec, *tables)
+
+
+def unpack_rows(conf: DllPllConf, state: TrackingState,
+                rows: torch.Tensor) -> tuple[TrackingState, dict]:
+    """The kernel's [C, K, 128] rows of a block started from ``state`` as
+    ``dll_pll.track_block``'s (new state, [S, C] outputs)."""
     t = conf.num_taps
     p_idx = t // 2
-    run = track_full if spec.kernel == "track_full" else track_blocked
-    rows = run(window, codes, _pack_scalars(conf, state), state.pos, spec,
-               data_codes, sec_pilot, sec_data)               # [C, K, 128]
 
     def col(lane):
         return rows[:, :, lane].T                             # [S, C]

@@ -28,6 +28,11 @@ engines, each channel's slot offset set by ``start_channel``'s
 ``carrier_offset_hz``. The Kalman mode (``conf.kf``) runs on the eager
 engine only, so its every period is one K3 launch.
 
+With a ``mesh`` (``parallel/sharding.py``) the channels split over
+shards: the state stays whole on the Tracker's device and each block runs
+the engine once per shard, by the same rule as on one device (so K1 on the
+card). The TPU package keeps a mesh on its XLA scan instead.
+
 The TPU package falls back from its fused kernel when window positions
 would pass 2^24 (float32 sample positions) or when channel positions
 spread beyond one DMA block. K1 here carries positions as int32 and reads
@@ -51,12 +56,6 @@ from gnss_sdr_tpu_torch.tracking.dll_pll import (
     KF_PC0,
     TrackingState,
     init_state,
-    track_block,
-)
-from gnss_sdr_tpu_torch.tracking.fused import (
-    build_fused_engine,
-    fused_eligible,
-    fused_track_block,
 )
 from gnss_sdr_tpu_torch.tracking.lock_detectors import (
     carrier_lock_detector,
@@ -184,12 +183,20 @@ class Tracker:
                  data_code_table: np.ndarray | None = None,
                  sec_pilot_table: np.ndarray | None = None,
                  sec_data_levels: np.ndarray | None = None, *,
-                 device: str | torch.device = "cuda") -> None:
+                 device: str | torch.device = "cuda", mesh=None) -> None:
         """code_table: [P, L] PRN chip levels (the PILOT component when
         conf.track_pilot). Pilot plans also give the data-code table, the
         per-PRN pilot secondary table [P, sec_len_pilot] and the shared
         data secondary [sec_len_data]. ``device`` holds the state and runs
-        the engines; "cuda" raises without a card."""
+        the engines; "cuda" raises without a card.
+
+        ``mesh``: an optional ``parallel.sharding.ChannelMesh``. The state
+        stays whole on ``device``, so the host FSM writes one state; each
+        block runs the engine once per shard on the shard's device and
+        gathers the new state and the outputs back. Without a mesh the
+        engine runs once on ``device``. Both go through
+        ``parallel.sharding.ShardedTrackBlock``, which also picks the
+        engine. conf.max_channels must divide evenly over the shards."""
         self.device = resolve_device(device)
         self.conf = conf
         self.code_table = np.asarray(code_table, dtype=np.float32)
@@ -218,11 +225,16 @@ class Tracker:
             self.data_codes = None
             self.sec_pilot = None
             self.sec_data = None
-        want_fused = (conf.fused_tracker if conf.fused_tracker is not None
-                      else self.device.type == "cuda")
-        self._use_fused = bool(want_fused) and fused_eligible(conf)
-        if self._use_fused:
-            self._fused_spec = build_fused_engine(conf)
+        # imported here: parallel.sharding imports this package's engines
+        from gnss_sdr_tpu_torch.parallel.sharding import (
+            make_channel_mesh,
+            make_sharded_track_block,
+        )
+
+        self.mesh = mesh
+        self._block = make_sharded_track_block(
+            conf, mesh if mesh is not None else make_channel_mesh(
+                [self.device]))
 
     # ----------------------------------------------------------------- setup
     def start_channel(
@@ -353,11 +365,7 @@ class Tracker:
                 tables += [self.data_codes, self.sec_pilot, self.sec_data]
             self._codes_dev = tuple(torch.tensor(t, device=self.device)
                                     for t in tables)
-        if self._use_fused:
-            new_state, outs = fused_track_block(
-                conf, self._fused_spec, st, window, *self._codes_dev)
-        else:
-            new_state, outs = track_block(conf, st, window, *self._codes_dev)
+        new_state, outs = self._block(st, window, *self._codes_dev)
         self.state = new_state
         host = outputs_to_host(outs, conf.num_taps)
         abs_end = host["pos_end"].astype(np.int64) + abs_base

@@ -41,7 +41,10 @@ COPIES = [
     "io/labsat.py",
     "io/net_sources.py",
     "io/sources.py",
+    "monitor/__init__.py",
     "monitor/dumps.py",
+    "monitor/protobuf.py",
+    "monitor/sinks.py",
     "monitor/status.py",
     "monitor/synchro.py",
     "native/__init__.py",
@@ -56,13 +59,19 @@ COPIES = [
     "outputs/kml.py",
     "outputs/nmea.py",
     "outputs/rinex.py",
+    "outputs/rinex_reader.py",
+    "outputs/rtcm.py",
+    "outputs/rtcm2.py",
     "pvt/antex.py",
     "pvt/atmosphere.py",
     "pvt/coords.py",
     "pvt/ephemeris.py",
     "pvt/glonass.py",
     "pvt/kf.py",
+    "pvt/lambda_ilr.py",
     "pvt/ppp.py",
+    "pvt/preceph.py",
+    "pvt/rtk.py",
     "pvt/sbas_corr.py",
     "pvt/solver.py",
     "pvt/tides.py",

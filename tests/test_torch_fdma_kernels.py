@@ -161,7 +161,7 @@ def test_engines_match_jax_xla_fdma():
     for fused in (False, True):
         tt = _started(TTracker(TConf(**kw, fused_tracker=fused), code,
                                device="cpu"))
-        assert tt._use_fused == fused
+        assert tt._block.fused == fused
         got = [tt.process(sig, 0) for _ in range(2)][1].outputs
         _assert_fdma_match(ref[False], got)
         _assert_fdma_match(ref[fused], got)

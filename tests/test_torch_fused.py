@@ -52,7 +52,7 @@ def run_pair(blocks, n, engage_jax=None, engage_port=None, **kw):
                                   fused_tracker=False, **kw)), tbl)
     tt = TTracker(TConf(**conf_kw(fused_tracker=True, **kw)), tbl,
                   device="cpu")
-    assert tt._use_fused
+    assert tt._block.fused
     start(jt)
     start(tt)
     if engage_jax is not None:

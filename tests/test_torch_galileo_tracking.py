@@ -71,7 +71,7 @@ def trackers(fused, steps):
                   sec_data_levels=sec_d)
     tt = TTracker(TConf(**dict(conf_kw(fused_tracker=fused), **kw)), tbl,
                   dtbl, sec_p, sec_d, device="cpu")
-    assert tt._use_fused == fused
+    assert tt._block.fused == fused
     for trk in (jt, tt):
         for ch in range(C):
             trk.start_channel(ch, prn=ch + 1, code_row=ch,

@@ -100,6 +100,7 @@ def test_entry_points_raise_without_cuda():
         SignalConditioner,
     )
     from gnss_sdr_tpu_torch.io.device_stream import DeviceStream
+    from gnss_sdr_tpu_torch.parallel import device_mesh, make_channel_mesh
     from gnss_sdr_tpu_torch.receiver.plans import gps_l1ca_plan
     from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
     from gnss_sdr_tpu_torch.tracking import Tracker
@@ -111,6 +112,10 @@ def test_entry_points_raise_without_cuda():
     plan = gps_l1ca_plan(2.6e6)
     conf, table, prns = plan.acq_conf, plan.code_table, [1, 2]
     for make in (lambda: Receiver(ReceiverConfig()),
+                 lambda: Receiver(ReceiverConfig(num_devices=2)),
+                 lambda: make_channel_mesh(),
+                 lambda: make_channel_mesh(["cuda:0"]),
+                 lambda: device_mesh(1),
                  lambda: Tracker(plan.trk_conf, plan.code_table),
                  lambda: DeviceStream(1024),
                  lambda: resolve_device("cuda"),
@@ -131,18 +136,36 @@ def test_entry_points_raise_without_cuda():
 
 
 def test_tools_raise_without_cuda():
-    """The kernel-bench tools default to the card and raise without one;
-    ``device="cpu"`` runs their plain versions."""
+    """The kernel-bench tools, the scaling tool, the distributed worker
+    and the multi-device dry run default to the card and raise without
+    one; ``device="cpu"`` runs their plain versions or the CPU path.
+    nav_listener and skyplot use no device (tests/test_torch_host_modules.py
+    runs them)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    from gnss_sdr_tpu_torch.tools import kbench, mosaic_probe
+    from gnss_sdr_tpu_torch.parallel.dryrun import dryrun_multichip
+    from gnss_sdr_tpu_torch.tools import (
+        dist_worker,
+        kbench,
+        mosaic_probe,
+        nav_listener,
+        scaling,
+        skyplot,
+    )
 
     for make in (lambda: kbench.run("simple"),
                  lambda: kbench.run("full", C=1, K=2, iters=1),
                  lambda: mosaic_probe.timed("baseline", "baseline"),
-                 lambda: mosaic_probe.run_all(k=1, iters=1, reps=1)):
+                 lambda: mosaic_probe.run_all(k=1, iters=1, reps=1),
+                 lambda: scaling.run((1,), channels=2, steps=1, iters=1),
+                 lambda: scaling.main(["--shards", "1"]),
+                 lambda: dist_worker.main(["0", "1", "0", "1"]),
+                 lambda: dryrun_multichip(1)):
         with pytest.raises(RuntimeError):
             make()
+    assert callable(nav_listener.main) and callable(skyplot.main)
+    times = scaling.run((1, 2), channels=2, steps=2, iters=1, device="cpu")
+    assert sorted(times) == [1, 2] and min(times.values()) > 0
     assert kbench.run("simple", C=1, K=2, iters=1, device="cpu")["kind"] == (
         "simple")
     assert mosaic_probe.timed("narrow", "narrow", reps=1, k=1, iters=1,

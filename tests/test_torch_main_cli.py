@@ -155,6 +155,9 @@ _ALT_KEYS = {
     # the capture moved to an IF of +250 kHz, brought back by the filter
     "freq_xlating": {"InputFilter.implementation": "Freq_Xlating_Fir_Filter",
                      "InputFilter.IF": "250000"},
+    # the six channels sharded over two devices (two CPU shards in the
+    # port, two of conftest's virtual devices in JAX)
+    "num_devices": {"GNSS-SDR.num_devices": "2"},
 }
 
 
@@ -162,8 +165,9 @@ _ALT_KEYS = {
 def test_alternate_confs_match_jax(case, tmp_path, monkeypatch):
     """The slice as a whole: 0.4 s of this file's capture through both
     packages' run_from_config with conf/gps_l1_gaussian.conf's keys (the
-    CKF loop closer), with GPS_L1_CA_KF_Tracking instead, and with a
-    Freq_Xlating_Fir_Filter on a copy moved to +250 kHz. The first
+    CKF loop closer), with GPS_L1_CA_KF_Tracking instead, with a
+    Freq_Xlating_Fir_Filter on a copy moved to +250 kHz, and with
+    ``GNSS-SDR.num_devices=2`` (a two-shard channel mesh). The first
     acquisitions are equal (Doppler, delays within one sample), and each
     channel ends in the same phase with its Doppler within 0.1 Hz."""
     fs = int(FS)
@@ -193,6 +197,9 @@ def test_alternate_confs_match_jax(case, tmp_path, monkeypatch):
     (jg,), (tg,) = j_made[0].groups, t_made[0].groups
     assert tg.plan.trk_engine == jg.plan.trk_engine
     assert tg.plan.trk_conf.kf == (case == "kf")
+    shards = 2 if case == "num_devices" else None
+    assert (t_made[0].mesh and t_made[0].mesh.size) == shards
+    assert (j_made[0].mesh and j_made[0].mesh.devices.size) == shards
     assert _phases(t_made[0]) == _phases(j_made[0])
     act = jg.tracker.active_channels()
     assert act == tg.tracker.active_channels() and act

@@ -93,16 +93,19 @@ def test_receiver_matches_jax_on_6s_capture():
                                 {"enable_pvt_kf": True}],
                          ids=["multi_device", "osnma", "ppp", "pvt_kf"])
 def test_unsupported_options_raise(kw):
-    """Multiple devices raise, naming ROADMAP queue item 14. OSNMA, the
-    PPP positioning modes and the PVT Kalman filter are carried (the name
-    is from when they raised): both Receivers build the same engines for
-    them."""
-    if "num_devices" in kw:
-        with pytest.raises(NotImplementedError, match="queue item 14"):
-            Receiver(ReceiverConfig(device="cpu", **kw))
-        return
+    """Multiple devices, OSNMA, the PPP positioning modes and the PVT
+    Kalman filter are carried (the name is from when they raised): both
+    Receivers build the same engines for them; with two devices, a
+    two-shard channel mesh handed to every group's acquisition and
+    Tracker."""
     jrx = JReceiver(JConfig(**kw))
     trx = Receiver(ReceiverConfig(device="cpu", **kw))
+    if "num_devices" in kw:
+        assert trx.mesh.size == jrx.mesh.devices.size == 2
+        for jg, tg in zip(jrx.groups, trx.groups, strict=True):
+            assert jg.tracker.mesh is jrx.mesh and jg.acq.mesh is jrx.mesh
+            assert tg.tracker.mesh is trx.mesh and tg.acq.mesh is trx.mesh
+        return
     for name in ("osnma", "ppp", "pvt_kf"):
         j, t = getattr(jrx, name), getattr(trx, name)
         assert (t is None) == (j is None), name

@@ -168,7 +168,7 @@ def test_env_selects_fused_kernel(monkeypatch, env, want):
     tbl = gps_l1_ca_code_table()[:C2].astype(np.float32)
     trk = Tracker(DllPllConf(**conf_kw(fused_tracker=True)), tbl,
                   device="cpu")
-    assert trk._fused_spec.kernel == want
+    assert trk._block.spec.kernel == want
     for ch in range(C2):
         trk.start_channel(ch, prn=ch + 1, code_row=ch, acq_delay_samples=0.0,
                           acq_doppler_hz=DOPS[ch], acq_samplestamp=0,

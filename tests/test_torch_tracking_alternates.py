@@ -107,7 +107,7 @@ def test_kf_tracker_matches_jax():
                   gps_l1_ca_code_table())
     tt = TTracker(TConf(fused_tracker=True, **kw), gps_l1_ca_code_table(),
                   device="cpu")
-    assert not tt._use_fused            # the fused kernel has no KF mode
+    assert not tt._block.fused            # the fused kernel has no KF mode
     for trk in (jt, tt):
         start(trk, 5, -1234.0 + 90.0, 400.0 + 0.5 / SPC)
     for _ in range(2):
@@ -221,7 +221,7 @@ def test_closer_writes_match_jax():
     # ... and its next block (K1's plain version) matches the JAX block on
     # the started channel (an idle channel burns periods in the XLA scan
     # and holds still in the fused engine)
-    assert tt._use_fused
+    assert tt._block.fused
     oj, ot = step(jt, x).outputs, step(tt, x).outputs
     assert_match({k: v[:, :1] for k, v in oj.items()},
                  {k: v[:, :1] for k, v in ot.items()})
