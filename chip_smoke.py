@@ -4821,7 +4821,8 @@ def main() -> int:
     # and replica form, K3 per tap count,
     # replica form and data prompt, K4 per tap count and replica form, P1
     # per variant and cluster size (R = 1, 2, 4, 8; narrow has one)
-    found = _build.kernel_resources(_build.build_log)
+    found = _build.kernel_resources(
+        (_build.build().parent / "build.log").read_text())
     res = {}
     for kname, tag, want in (("track_blocked", "BlockedLoop", 16),
                              ("track_full", "track_full_kernel", 16),

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from gnss_sdr_tpu_torch import SAMPLE_DTYPE, resolve_device
+from gnss_sdr_tpu_torch.utils import trace
 
 
 class DeviceStream:
@@ -47,25 +48,35 @@ class DeviceStream:
         n = len(chunk)
         if n == 0:
             return
-        chunk = np.asarray(chunk, np.complex64)
-        if quantize_i8:
-            if self._i8_scale is None:
-                rms = float(np.sqrt(np.mean(np.abs(chunk) ** 2))) or 1.0
-                # +-4 sigma spans the int8 range
-                self._i8_scale = 4.0 * rms / 127.0
-            s = self._i8_scale
-            i8 = np.empty((n, 2), np.int8)
-            i8[:, 0] = np.clip(np.round(chunk.real / s), -127, 127)
-            i8[:, 1] = np.clip(np.round(chunk.imag / s), -127, 127)
-            dev_i8 = torch.as_tensor(i8, device=self.device)
-            new = torch.view_as_complex(dev_i8.to(torch.float32) * s)
-        else:
-            new = torch.as_tensor(chunk, device=self.device)
-        if n >= self.length:
-            self._buf = new[-self.length:].contiguous()
-        else:
-            self._buf = torch.cat([self._buf[n:], new])
-        self.end += n
+        with trace.span("feed.upload"):
+            host = np.asarray(chunk, np.complex64)
+            if quantize_i8:
+                with trace.span("feed.quantize"):
+                    host = self._quantize(host)
+                dev_i8 = torch.as_tensor(host, device=self.device)
+                new = torch.view_as_complex(
+                    dev_i8.to(torch.float32) * self._i8_scale)
+            else:
+                new = torch.as_tensor(host, device=self.device)
+            trace.count("h2d.feed.copies")
+            trace.count("h2d.feed.bytes", host.nbytes)
+            if n >= self.length:
+                self._buf = new[-self.length:].contiguous()
+            else:
+                self._buf = torch.cat([self._buf[n:], new])
+            self.end += n
+
+    def _quantize(self, chunk: np.ndarray) -> np.ndarray:
+        """The chunk as int8 I/Q [N, 2] at the locked scale."""
+        if self._i8_scale is None:
+            rms = float(np.sqrt(np.mean(np.abs(chunk) ** 2))) or 1.0
+            # +-4 sigma spans the int8 range
+            self._i8_scale = 4.0 * rms / 127.0
+        s = self._i8_scale
+        i8 = np.empty((len(chunk), 2), np.int8)
+        i8[:, 0] = np.clip(np.round(chunk.real / s), -127, 127)
+        i8[:, 1] = np.clip(np.round(chunk.imag / s), -127, 127)
+        return i8
 
     @property
     def window(self) -> torch.Tensor:

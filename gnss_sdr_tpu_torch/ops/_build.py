@@ -37,7 +37,6 @@ FILE_FLAGS = {"probe.cu": ["-fmad=false"]}
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None
-build_log: str = ""
 
 
 def _nvcc() -> str:
@@ -62,15 +61,14 @@ def _key(sources: list[Path]) -> str:
 
 
 def build() -> Path:
-    """Compile (if needed) and return the path of the shared library."""
-    global build_seconds, build_log
+    """Compile (if needed) and return the path of the shared library; the
+    nvcc and ptxas output lies beside it in ``build.log``."""
+    global build_seconds
     sources = _sources()
     out_dir = BUILD_ROOT / _key(sources)
     so = out_dir / "libgnss_kernels.so"
     if so.exists():
         build_seconds = 0.0 if build_seconds is None else build_seconds
-        if not build_log and (out_dir / "build.log").exists():
-            build_log = (out_dir / "build.log").read_text()
         return so
     t0 = time.perf_counter()
     tmp = out_dir.with_name(out_dir.name + f".tmp{os.getpid()}")
@@ -104,8 +102,7 @@ def build() -> Path:
         shutil.rmtree(tmp, ignore_errors=True)
     else:
         tmp.rename(out_dir)
-    build_log = "\n".join(logs)
-    (out_dir / "build.log").write_text(build_log)
+    (out_dir / "build.log").write_text("\n".join(logs))
     build_seconds = time.perf_counter() - t0
     return so
 

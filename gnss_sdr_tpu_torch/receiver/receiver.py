@@ -84,6 +84,7 @@ from gnss_sdr_tpu_torch.receiver.osnma_rx import OsnmaManager
 from gnss_sdr_tpu_torch.receiver.plans import SignalPlan, gps_l1ca_plan
 from gnss_sdr_tpu_torch.tracking import ChannelPhase, Tracker
 from gnss_sdr_tpu_torch.tracking.tracker import BlockResult
+from gnss_sdr_tpu_torch.utils import trace
 from gnss_sdr_tpu_torch.utils.log import get_logger
 
 log = get_logger(__name__)
@@ -376,11 +377,15 @@ class Receiver:
     # ---------------------------------------------------------------- stream
     def feed(self, chunk: np.ndarray, band: str | None = None) -> None:
         """Append samples to a band's stream buffer (default: first band)."""
-        b = self.bands[0] if band is None else band
-        chunk = np.asarray(chunk, dtype=np.complex64)
-        self._bufs[b] = np.concatenate([self._bufs[b], chunk])
-        self._stream_ends[b] += len(chunk)
-        self._dev_streams[b].append(chunk, quantize_i8=self.cfg.int8_stream)
+        trace.follow_profiler()
+        with trace.span("feed"):
+            b = self.bands[0] if band is None else band
+            chunk = np.asarray(chunk, dtype=np.complex64)
+            with trace.span("feed.concat"):
+                self._bufs[b] = np.concatenate([self._bufs[b], chunk])
+            self._stream_ends[b] += len(chunk)
+            self._dev_streams[b].append(chunk,
+                                        quantize_i8=self.cfg.int8_stream)
 
     def _slice(self, band: str, start: int, n: int) -> np.ndarray | None:
         if start < self._buf_bases[band] or start + n > self._stream_ends[band]:
@@ -398,11 +403,12 @@ class Receiver:
     def acquire(self, at_sample: int | None = None) -> dict:
         """Batched PCPS over every group's search list; assign detections to
         idle channels and start tracking (cold-start acquisition)."""
-        started = {}
-        for g in self.groups:
-            started.update(self._acquire_group(g, at_sample))
-        self.status.acquired.update(started)
-        return started
+        with trace.span("acquire"):
+            started = {}
+            for g in self.groups:
+                started.update(self._acquire_group(g, at_sample))
+            self.status.acquired.update(started)
+            return started
 
     def _acquire_group(self, g: SignalGroup, at_sample: int | None) -> dict:
         plan = g.plan
@@ -612,232 +618,248 @@ class Receiver:
 
     # -------------------------------------------------------------- per block
     def _handle_block(self, g: SignalGroup, result) -> None:
-        plan = g.plan
-        conf = plan.trk_conf
-        out = result.outputs
-        if g.dumper is not None:
-            g.dumper.push(_dump_result(result))
-        for ch, ev in result.events:
-            log.info("%s ch%d prn %d: %s", plan.name, ch,
-                     g.channel_prn[ch], ev)
-        for ch in range(plan.num_channels):
-            ctl = g.tracker.ctl[ch]
-            if ctl.phase not in (ChannelPhase.WIDE, ChannelPhase.NARROW):
-                continue
-            prn = g.channel_prn[ch]
-            gch = g.offset + ch
-            # observables: every period's stamp/code-phase/doppler/phase
-            self.obs.push_periods(
-                gch,
-                result.abs_sample_end[:, ch],
-                out["rem_code_phase"][:, ch],
-                out["carrier_doppler"][:, ch],
-                out["carrier_phase"][:, ch],
-                cn0_dbhz=ctl.cn0_dbhz,
-            )
-            # sub-chip code phase by stamp, for anchoring telemetry TOWs
-            rem_map = g.recent_rem.setdefault(ch, {})
-            for k in range(result.abs_sample_end.shape[0]):
-                rem_map[int(result.abs_sample_end[k, ch])] = float(
-                    out["rem_code_phase"][k, ch]
+        with trace.span("blocks"):
+            plan = g.plan
+            conf = plan.trk_conf
+            out = result.outputs
+            if g.dumper is not None:
+                g.dumper.push(_dump_result(result))
+            for ch, ev in result.events:
+                log.info("%s ch%d prn %d: %s", plan.name, ch,
+                         g.channel_prn[ch], ev)
+            for ch in range(plan.num_channels):
+                ctl = g.tracker.ctl[ch]
+                if ctl.phase not in (ChannelPhase.WIDE, ChannelPhase.NARROW):
+                    continue
+                prn = g.channel_prn[ch]
+                gch = g.offset + ch
+                # observables: every period's stamp/code-phase/doppler/phase
+                self.obs.push_periods(
+                    gch,
+                    result.abs_sample_end[:, ch],
+                    out["rem_code_phase"][:, ch],
+                    out["carrier_doppler"][:, ch],
+                    out["carrier_phase"][:, ch],
+                    cn0_dbhz=ctl.cn0_dbhz,
                 )
-            if len(rem_map) > 200:
-                for s in sorted(rem_map)[:-100]:
-                    del rem_map[s]
-
-            if prn not in g.decoders:
-                continue
-            # telemetry symbols: pilot plans take the data component's
-            # symbols (one per sec_len_data periods, on the quadrature axis
-            # once the pilot PLL holds the carrier: reference track_pilot
-            # Prompt_Data); BPSK plans take extended-integration prompts for
-            # multi-period bits (GPS LNAV) or every period's prompt for
-            # symbol-rate signals (Galileo E1-B, 250 symbols/s)
-            if conf.track_pilot:
-                if not ctl.sec_locked:
-                    continue
-                db = out["data_boundary"][:, ch]
-                full = db & (out["data_count"][:, ch] == conf.sec_len_data)
-                if not full.any():
-                    continue
-                sym = out["data_prompt"][full, ch]
-                signs = np.sign(sym.imag if conf.data_on_quadrature
-                                else sym.real)
-            else:
-                b = out["boundary"][:, ch]
-                if conf.extend_correlation_symbols > 1:
-                    if ctl.phase != ChannelPhase.NARROW:
-                        continue
-                    n_acc = out["acc_samples"][:, ch]
-                    full = b & (
-                        n_acc > conf.samples_per_code
-                        * (conf.extend_correlation_symbols - 0.5)
+                # sub-chip code phase by stamp, for anchoring telemetry TOWs
+                rem_map = g.recent_rem.setdefault(ch, {})
+                for k in range(result.abs_sample_end.shape[0]):
+                    rem_map[int(result.abs_sample_end[k, ch])] = float(
+                        out["rem_code_phase"][k, ch]
                     )
-                else:
-                    full = b
-                if not full.any():
+                if len(rem_map) > 200:
+                    for s in sorted(rem_map)[:-100]:
+                        del rem_map[s]
+
+                if prn not in g.decoders:
                     continue
-                signs = np.sign(out["acc_prompt"][full, ch].real)
-            stamps = result.abs_sample_end[full, ch]
-            dec = g.decoders[prn]
-            events = (dec.push_symbols(signs, stamps)
-                      if hasattr(dec, "push_symbols")
-                      else dec.push_bits(signs, stamps))
-            for ev in events:
-                self.status.subframes += 1
-                # FDMA slot identity: antipodal satellites share the
-                # frequency channel; the decoded GNAV slot number (string
-                # 4 'n') is the authority (reference
-                # flag_update_slot_number). Re-key the channel if the
-                # acquisition-time guess picked the twin.
-                true_prn = prn
-                if plan.system == "R" and ev.get("ephemeris_complete"):
-                    true_prn = getattr(
-                        g.decoders[prn].eph, "slot", prn) or prn
-                if true_prn != prn:
-                    if true_prn in g.channel_prn:
-                        log.info("R%02d: twin slot already tracked, "
-                                 "dropping channel %d", true_prn, ch)
-                        g.tracker.stop_channel(ch)
-                        self.obs.deanchor_keep_signal(gch)
-                        del g.decoders[prn]
-                        break
-                    log.info("R%02d -> R%02d: GNAV slot re-key", prn,
-                             true_prn)
-                    g.decoders[true_prn] = g.decoders.pop(prn)
-                    g.channel_prn[ch] = true_prn
-                    prn = true_prn
-                rem = rem_map.get(int(ev["sample_stamp"]), 0.0)
-                self.obs.anchor(
-                    gch, prn, ev["tow_s"], ev["sample_stamp"],
-                    rem_code_chips=rem,
-                )
-                if plan.trk_conf.tow_to_trk:
-                    # reference telemetry_to_trk message path: TOW +
-                    # samplestamp back to the tracking channel
-                    wn = int(getattr(g.decoders[prn].eph, "week", 0) or 0)
-                    g.tracker.set_tow_from_telemetry(
-                        ch, ev["tow_s"] * 1000.0, wn, ev["sample_stamp"])
-                if self.osnma is not None and plan.system == "E":
-                    self.osnma.anchor(gch, ev["tow_s"], ev["sample_stamp"],
-                                      plan.trk_conf.fs)
-                if ev["ephemeris_complete"]:
-                    if (plan.system, prn) not in self.ephemerides:
-                        log.info("%s%02d: ephemeris complete",
-                                 plan.system, prn)
-                    self.ephemerides[(plan.system, prn)] = g.decoders[prn].eph
-                elif (getattr(g.decoders[prn], "reduced_ced", None)
-                      is not None
-                      and (plan.system, prn) not in self.ephemerides):
-                    # I/NAV word-16 reduced CED as a preliminary ephemeris
-                    # for a faster first fix (reference get_reduced_ced),
-                    # replaced by the full CED when it completes
-                    log.info("%s%02d: reduced CED ephemeris",
-                             plan.system, prn)
-                    self.ephemerides[(plan.system, prn)] = (
-                        g.decoders[prn].reduced_ced.compute_eph())
-            # OSNMA: drain the decoder's per-page 40-bit fields into the
-            # TESLA engine once the ephemeris (the authenticated words and
-            # the GST week) is known (reference galileo_telemetry_decoder_gs
-            # -> osnma_msg_receiver routing)
+                # telemetry symbols: pilot plans take the data component's
+                # symbols (one per sec_len_data periods, on the quadrature
+                # axis once the pilot PLL holds the carrier: reference
+                # track_pilot Prompt_Data); BPSK plans take
+                # extended-integration prompts for multi-period bits (GPS
+                # LNAV) or every period's prompt for symbol-rate signals
+                # (Galileo E1-B, 250 symbols/s)
+                if conf.track_pilot:
+                    if not ctl.sec_locked:
+                        continue
+                    db = out["data_boundary"][:, ch]
+                    full = db & (out["data_count"][:, ch] == conf.sec_len_data)
+                    if not full.any():
+                        continue
+                    sym = out["data_prompt"][full, ch]
+                    signs = np.sign(sym.imag if conf.data_on_quadrature
+                                    else sym.real)
+                else:
+                    b = out["boundary"][:, ch]
+                    if conf.extend_correlation_symbols > 1:
+                        if ctl.phase != ChannelPhase.NARROW:
+                            continue
+                        n_acc = out["acc_samples"][:, ch]
+                        full = b & (
+                            n_acc > conf.samples_per_code
+                            * (conf.extend_correlation_symbols - 0.5)
+                        )
+                    else:
+                        full = b
+                    if not full.any():
+                        continue
+                    signs = np.sign(out["acc_prompt"][full, ch].real)
+                with trace.span("blocks.telemetry"):
+                    self._telemetry(g, ch, prn, signs,
+                                    result.abs_sample_end[full, ch])
+
+    def _telemetry(self, g: SignalGroup, ch: int, prn: int,
+                   signs: np.ndarray, stamps: np.ndarray) -> None:
+        """Push one channel's symbols of a block to its decoder and act on
+        the decoder's events: TOW anchors, ephemerides, OSNMA, iono."""
+        plan = g.plan
+        gch = g.offset + ch
+        rem_map = g.recent_rem[ch]
+        dec = g.decoders[prn]
+        events = (dec.push_symbols(signs, stamps)
+                  if hasattr(dec, "push_symbols")
+                  else dec.push_bits(signs, stamps))
+        for ev in events:
+            self.status.subframes += 1
+            # FDMA slot identity: antipodal satellites share the
+            # frequency channel; the decoded GNAV slot number (string
+            # 4 'n') is the authority (reference
+            # flag_update_slot_number). Re-key the channel if the
+            # acquisition-time guess picked the twin.
+            true_prn = prn
+            if plan.system == "R" and ev.get("ephemeris_complete"):
+                true_prn = getattr(
+                    g.decoders[prn].eph, "slot", prn) or prn
+            if true_prn != prn:
+                if true_prn in g.channel_prn:
+                    log.info("R%02d: twin slot already tracked, "
+                             "dropping channel %d", true_prn, ch)
+                    g.tracker.stop_channel(ch)
+                    self.obs.deanchor_keep_signal(gch)
+                    del g.decoders[prn]
+                    break
+                log.info("R%02d -> R%02d: GNAV slot re-key", prn,
+                         true_prn)
+                g.decoders[true_prn] = g.decoders.pop(prn)
+                g.channel_prn[ch] = true_prn
+                prn = true_prn
+            rem = rem_map.get(int(ev["sample_stamp"]), 0.0)
+            self.obs.anchor(
+                gch, prn, ev["tow_s"], ev["sample_stamp"],
+                rem_code_chips=rem,
+            )
+            if plan.trk_conf.tow_to_trk:
+                # reference telemetry_to_trk message path: TOW +
+                # samplestamp back to the tracking channel
+                wn = int(getattr(g.decoders[prn].eph, "week", 0) or 0)
+                g.tracker.set_tow_from_telemetry(
+                    ch, ev["tow_s"] * 1000.0, wn, ev["sample_stamp"])
             if self.osnma is not None and plan.system == "E":
-                dec = g.decoders.get(prn)
-                eph = self.ephemerides.get(("E", prn))
-                if (dec is not None and eph is not None
-                        and getattr(dec, "osnma_fields", None)):
-                    fields = dec.osnma_fields
-                    dec.osnma_fields = []
-                    self.osnma.push_fields(
-                        gch, prn, getattr(eph, "week", None), eph, fields)
-            # broadcast iono (LNAV SF4 page 18) feeds the solver's
-            # Klobuchar model
-            if events and plan.system == "G" and not self.iono.valid:
-                iu = getattr(g.decoders[prn], "iono_utc", None)
-                if iu is not None and iu.has_iono:
-                    self.iono = KlobucharParams(alpha=iu.alpha, beta=iu.beta)
-                    self.status.iono_utc = iu
+                self.osnma.anchor(gch, ev["tow_s"], ev["sample_stamp"],
+                                  plan.trk_conf.fs)
+            if ev["ephemeris_complete"]:
+                if (plan.system, prn) not in self.ephemerides:
+                    log.info("%s%02d: ephemeris complete",
+                             plan.system, prn)
+                self.ephemerides[(plan.system, prn)] = g.decoders[prn].eph
+            elif (getattr(g.decoders[prn], "reduced_ced", None)
+                  is not None
+                  and (plan.system, prn) not in self.ephemerides):
+                # I/NAV word-16 reduced CED as a preliminary ephemeris
+                # for a faster first fix (reference get_reduced_ced),
+                # replaced by the full CED when it completes
+                log.info("%s%02d: reduced CED ephemeris",
+                         plan.system, prn)
+                self.ephemerides[(plan.system, prn)] = (
+                    g.decoders[prn].reduced_ced.compute_eph())
+        # OSNMA: drain the decoder's per-page 40-bit fields into the
+        # TESLA engine once the ephemeris (the authenticated words and
+        # the GST week) is known (reference galileo_telemetry_decoder_gs
+        # -> osnma_msg_receiver routing)
+        if self.osnma is not None and plan.system == "E":
+            dec = g.decoders.get(prn)
+            eph = self.ephemerides.get(("E", prn))
+            if (dec is not None and eph is not None
+                    and getattr(dec, "osnma_fields", None)):
+                fields = dec.osnma_fields
+                dec.osnma_fields = []
+                self.osnma.push_fields(
+                    gch, prn, getattr(eph, "week", None), eph, fields)
+        # broadcast iono (LNAV SF4 page 18) feeds the solver's
+        # Klobuchar model
+        if events and plan.system == "G" and not self.iono.valid:
+            iu = getattr(g.decoders[prn], "iono_utc", None)
+            if iu is not None and iu.has_iono:
+                self.iono = KlobucharParams(alpha=iu.alpha, beta=iu.beta)
+                self.status.iono_utc = iu
 
     # ---------------------------------------------------------------- epochs
     def _run_epochs(self) -> None:
-        cfg = self.cfg
-        if self.obs.t_rx_tow is None:
-            return
-        interval = cfg.obs_interval_ms / 1000.0
-        if self._next_epoch_t is None:
-            self._next_epoch_t = (
-                np.floor(self.obs.rx_ref_time_s / interval) + 2
-            ) * interval
-        heads = self._active_head_times()
-        if not heads:
-            return
-        horizon = min(heads)
-        while self._next_epoch_t + interval < horizon:
-            t_ep = self._next_epoch_t
-            self._next_epoch_t += interval
-            epoch_obs = self.obs.epoch_time(t_ep)
-            usable = self._filter_osnma([
-                o for o in epoch_obs
-                if (o.system, o.prn) in self.ephemerides
-            ])
-            t_rx = self.obs.rx_tow_at_time(t_ep)
-            if len(usable) >= 4 and (
-                t_rx - self._last_pvt_tow >= cfg.pvt_interval_ms / 1000.0 - 1e-9
-            ):
-                self._last_pvt_tow = t_rx
-                obs_list = [
-                    ObsEpoch(
-                        prn=o.prn,
-                        pseudorange_m=o.pseudorange_smoothed_m,
-                        doppler_hz=o.doppler_hz,
-                        carrier_phase_cycles=o.carrier_phase_cycles,
-                        cn0_dbhz=o.cn0_dbhz,
-                        carrier_freq_hz=C_LIGHT / self.obs.ch[o.channel].wavelength_m,
-                        system=o.system,
-                        signal=o.signal,
-                    )
-                    for o in usable
-                ]
-                x0 = (
-                    self._last_fix.pos_ecef if self._last_fix is not None
-                    else None
-                )
-                sol = solve_pvt(
-                    obs_list, self.ephemerides, t_rx,
-                    iono=self.iono if self.cfg.apply_atmosphere else None,
-                    x0=x0,
-                    apply_atmosphere=self.cfg.apply_atmosphere,
-                )
-                if self.ppp is not None and sol.valid:
-                    self._refine_ppp(sol, usable, t_rx)
-                if sol.valid:
-                    if not self.status.fixes:
-                        log.info(
-                            "first fix: lat %.5f lon %.5f h %.0f m "
-                            "(%d sats, TTFF %.1f s)",
-                            np.degrees(sol.lat_rad), np.degrees(sol.lon_rad),
-                            sol.height_m, sol.num_sats, t_ep,
+        with trace.span("epochs"):
+            cfg = self.cfg
+            if self.obs.t_rx_tow is None:
+                return
+            interval = cfg.obs_interval_ms / 1000.0
+            if self._next_epoch_t is None:
+                self._next_epoch_t = (
+                    np.floor(self.obs.rx_ref_time_s / interval) + 2
+                ) * interval
+            heads = self._active_head_times()
+            if not heads:
+                return
+            horizon = min(heads)
+            while self._next_epoch_t + interval < horizon:
+                t_ep = self._next_epoch_t
+                self._next_epoch_t += interval
+                epoch_obs = self.obs.epoch_time(t_ep)
+                usable = self._filter_osnma([
+                    o for o in epoch_obs
+                    if (o.system, o.prn) in self.ephemerides
+                ])
+                t_rx = self.obs.rx_tow_at_time(t_ep)
+                if len(usable) >= 4 and (
+                    t_rx - self._last_pvt_tow >= cfg.pvt_interval_ms / 1000.0 - 1e-9
+                ):
+                    self._last_pvt_tow = t_rx
+                    obs_list = [
+                        ObsEpoch(
+                            prn=o.prn,
+                            pseudorange_m=o.pseudorange_smoothed_m,
+                            doppler_hz=o.doppler_hz,
+                            carrier_phase_cycles=o.carrier_phase_cycles,
+                            cn0_dbhz=o.cn0_dbhz,
+                            carrier_freq_hz=C_LIGHT / self.obs.ch[o.channel].wavelength_m,
+                            system=o.system,
+                            signal=o.signal,
                         )
-                    if sol.raim_rejected:
-                        log.warning("RAIM rejected: %s", sol.raim_rejected)
-                    if self.pvt_kf is not None:
-                        pos, vel = self.pvt_kf.update(
-                            t_rx, sol.pos_ecef, sol.vel_ecef)
-                        sol.pos_ecef = pos
-                        sol.vel_ecef = vel
-                        sol.lat_rad, sol.lon_rad, sol.height_m = (
-                            ecef_to_llh(pos))
-                    self._last_fix = sol
-                    self.status.fixes.append(sol)
-                    if self.status.ttff_s is None:
-                        self.status.ttff_s = t_ep
-                    # clock feedback loop: keep the free-running rx clock
-                    # near GPS time so pseudoranges stay near nominal
-                    thr = cfg.rx_clock_correction_s
-                    if thr > 0 and abs(sol.clock_bias_s) > thr:
-                        log.info("rx clock slew: %.3f ms",
-                                 sol.clock_bias_s * 1e3)
-                        self.obs.apply_clock_correction(sol.clock_bias_s)
-                        self._last_pvt_tow -= sol.clock_bias_s
+                        for o in usable
+                    ]
+                    x0 = (
+                        self._last_fix.pos_ecef if self._last_fix is not None
+                        else None
+                    )
+                    with trace.span("epochs.pvt"):
+                        sol = solve_pvt(
+                            obs_list, self.ephemerides, t_rx,
+                            iono=(self.iono if self.cfg.apply_atmosphere
+                                  else None),
+                            x0=x0,
+                            apply_atmosphere=self.cfg.apply_atmosphere,
+                        )
+                        if self.ppp is not None and sol.valid:
+                            self._refine_ppp(sol, usable, t_rx)
+                    if sol.valid:
+                        if not self.status.fixes:
+                            log.info(
+                                "first fix: lat %.5f lon %.5f h %.0f m "
+                                "(%d sats, TTFF %.1f s)",
+                                np.degrees(sol.lat_rad),
+                                np.degrees(sol.lon_rad),
+                                sol.height_m, sol.num_sats, t_ep,
+                            )
+                        if sol.raim_rejected:
+                            log.warning("RAIM rejected: %s", sol.raim_rejected)
+                        if self.pvt_kf is not None:
+                            pos, vel = self.pvt_kf.update(
+                                t_rx, sol.pos_ecef, sol.vel_ecef)
+                            sol.pos_ecef = pos
+                            sol.vel_ecef = vel
+                            sol.lat_rad, sol.lon_rad, sol.height_m = (
+                                ecef_to_llh(pos))
+                        self._last_fix = sol
+                        self.status.fixes.append(sol)
+                        if self.status.ttff_s is None:
+                            self.status.ttff_s = t_ep
+                        # clock feedback loop: keep the free-running rx clock
+                        # near GPS time so pseudoranges stay near nominal
+                        thr = cfg.rx_clock_correction_s
+                        if thr > 0 and abs(sol.clock_bias_s) > thr:
+                            log.info("rx clock slew: %.3f ms",
+                                     sol.clock_bias_s * 1e3)
+                            self.obs.apply_clock_correction(sol.clock_bias_s)
+                            self._last_pvt_tow -= sol.clock_bias_s
 
     def _refine_ppp(self, sol, usable: list, t_rx: float) -> None:
         """PPP_Static/PPP_Kinematic positioning modes: refine the LS fix

@@ -111,13 +111,14 @@ def period_loop(loops: list[dict]) -> int | None:
 
 def report(names=DEFAULT_NAMES, out: Path | None = None) -> list[dict]:
     so = _build.build()
-    res = _build.kernel_resources(_build.build_log)
+    log = (so.parent / "build.log").read_text()
+    res = _build.kernel_resources(log)
     sass = subprocess.run([_cuobjdump(), "-sass", str(so)], check=True,
                           capture_output=True, text=True).stdout
     if out is not None:
         out.mkdir(parents=True, exist_ok=True)
         (out / "libgnss_kernels.sass").write_text(sass)
-        (out / "build.log").write_text(_build.build_log)
+        (out / "build.log").write_text(log)
     rows = []
     for fname, lines in split_functions(sass).items():
         if not any(n in fname for n in names):

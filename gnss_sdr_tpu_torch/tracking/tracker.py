@@ -61,6 +61,7 @@ from gnss_sdr_tpu_torch.tracking.lock_detectors import (
     carrier_lock_detector,
     cn0_svn_estimator,
 )
+from gnss_sdr_tpu_torch.utils import trace
 
 
 class ChannelPhase(IntEnum):
@@ -139,26 +140,27 @@ def outputs_to_host(outs: dict, num_taps: int) -> dict:
     in one transfer: every leaf goes into one float64 tensor (exact for
     float32, complex64 parts, int32 and bool values) and is split back on
     the host."""
-    spec = output_dtypes(num_taps)
-    parts, widths = [], []
-    for name in spec:
-        v = outs[name]
-        s, c = v.shape[:2]
-        v = torch.view_as_real(v) if v.is_complex() else v[..., None]
-        v = v.reshape(s, c, -1).to(torch.float64)
-        parts.append(v)
-        widths.append(v.shape[-1])
-    flat = torch.cat(parts, dim=-1).cpu().numpy()
-    host, off = {}, 0
-    for (name, (trail, dtype)), w in zip(spec.items(), widths):
-        v = flat[..., off:off + w]
-        off += w
-        if np.issubdtype(dtype, np.complexfloating):
-            v = (v[..., 0::2] + 1j * v[..., 1::2]).astype(dtype)
-        else:
-            v = v.astype(dtype)
-        host[name] = v.reshape(v.shape[:2] + trail)
-    return host
+    with trace.span("track.to_host"):
+        spec = output_dtypes(num_taps)
+        parts, widths = [], []
+        for name in spec:
+            v = outs[name]
+            s, c = v.shape[:2]
+            v = torch.view_as_real(v) if v.is_complex() else v[..., None]
+            v = v.reshape(s, c, -1).to(torch.float64)
+            parts.append(v)
+            widths.append(v.shape[-1])
+        flat = torch.cat(parts, dim=-1).cpu().numpy()
+        host, off = {}, 0
+        for (name, (trail, dtype)), w in zip(spec.items(), widths):
+            v = flat[..., off:off + w]
+            off += w
+            if np.issubdtype(dtype, np.complexfloating):
+                v = (v[..., 0::2] + 1j * v[..., 1::2]).astype(dtype)
+            else:
+                v = v.astype(dtype)
+            host[name] = v.reshape(v.shape[:2] + trail)
+        return host
 
 
 def _write_channel(values: list, zero: list = ()) -> None:
@@ -339,44 +341,57 @@ class Tracker:
 
     def _process(self, window: torch.Tensor, abs_base: int,
                  window_len: int) -> BlockResult:
-        conf = self.conf
-        act = self.active_channels()
-        rel = self.pos_abs - abs_base
-        if act:
-            if int(rel[act].min()) < 0:
-                raise ValueError(
-                    "window too short: channel behind the buffer base "
-                    f"(rel {int(rel[act].min())})"
-                )
-            spread = int(rel[act].max())
-            need = spread + conf.steps_per_block * conf.max_step_samples
-            if need > window_len:
-                raise ValueError(
-                    f"window too short: need {need}, got {window_len} "
-                    f"(channel spread {spread})"
-                )
-        st = self.state.replace(pos=torch.as_tensor(
-            np.maximum(rel, 0).astype(np.int32), device=self.device))
-        # per-channel code/secondary tables live on the device, uploaded
-        # again only when start_channel or a secondary engage rewrites rows
-        if self._codes_dev is None:
-            tables = [self.codes]
-            if conf.track_pilot:
-                tables += [self.data_codes, self.sec_pilot, self.sec_data]
-            self._codes_dev = tuple(torch.tensor(t, device=self.device)
-                                    for t in tables)
-        new_state, outs = self._block(st, window, *self._codes_dev)
-        self.state = new_state
-        host = outputs_to_host(outs, conf.num_taps)
-        abs_end = host["pos_end"].astype(np.int64) + abs_base
-        for i in act:
-            self.pos_abs[i] = abs_end[-1, i]
+        with trace.span("track"):
+            trace.count("track.blocks")
+            conf = self.conf
+            act = self.active_channels()
+            rel = self.pos_abs - abs_base
+            if act:
+                if int(rel[act].min()) < 0:
+                    raise ValueError(
+                        "window too short: channel behind the buffer base "
+                        f"(rel {int(rel[act].min())})"
+                    )
+                spread = int(rel[act].max())
+                need = spread + conf.steps_per_block * conf.max_step_samples
+                if need > window_len:
+                    raise ValueError(
+                        f"window too short: need {need}, got {window_len} "
+                        f"(channel spread {spread})"
+                    )
+            with trace.span("track.pack"):
+                pos = np.maximum(rel, 0).astype(np.int32)
+                st = self.state.replace(pos=torch.as_tensor(
+                    pos, device=self.device))
+                trace.count("h2d.track.copies")
+                trace.count("h2d.track.bytes", pos.nbytes)
+                # per-channel code/secondary tables live on the device,
+                # uploaded again only when start_channel or a secondary
+                # engage rewrites rows
+                if self._codes_dev is None:
+                    tables = [self.codes]
+                    if conf.track_pilot:
+                        tables += [self.data_codes, self.sec_pilot,
+                                   self.sec_data]
+                    self._codes_dev = tuple(torch.tensor(t, device=self.device)
+                                            for t in tables)
+                    trace.count("h2d.track.copies", len(tables))
+                    trace.count("h2d.track.bytes",
+                                sum(t.nbytes for t in tables))
+            new_state, outs = self._block(st, window, *self._codes_dev)
+            self.state = new_state
+            host = outputs_to_host(outs, conf.num_taps)
+            abs_end = host["pos_end"].astype(np.int64) + abs_base
+            for i in act:
+                self.pos_abs[i] = abs_end[-1, i]
 
-        events = []
-        for i in act:
-            evs = self._update_channel_control(i, host)
-            events.extend((i, e) for e in evs)
-        return BlockResult(outputs=host, abs_sample_end=abs_end, events=events)
+            events = []
+            with trace.span("track.fsm"):
+                for i in act:
+                    evs = self._update_channel_control(i, host)
+                    events.extend((i, e) for e in evs)
+            return BlockResult(outputs=host, abs_sample_end=abs_end,
+                               events=events)
 
     # ------------------------------------------------- telemetry_to_trk
     def set_tow_from_telemetry(self, ch: int, tow_ms: float, wn: int,

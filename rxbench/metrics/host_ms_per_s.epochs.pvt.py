@@ -1,0 +1,8 @@
+"""Host milliseconds per signal second inside the port's own ``epochs.pvt``
+span (rxbench/program.py)."""
+
+from rxbench.program import span_ms_per_s
+
+
+def read(run):
+    return span_ms_per_s(run, "epochs.pvt")
